@@ -7,15 +7,26 @@ Builds the CUDA kernels from kintinuous_tpu_torch/csrc/, then, at the
 headline configuration (512^3 voxels over 6 m, 640x480 input, 320x240
 prediction, 16-voxel shifts, ICP odometry):
 
-  1. holds each kernel (band fusion, free carve, mirror refresh, raycast)
-     against its plain PyTorch version on the card, on a volume fused
-     from rendered views of a bare room, and times both with CUDA events;
+  1. holds each kernel (band fusion, free carve, mirror refresh, mirror
+     rebuild, raycast) against its plain PyTorch version on the card, on
+     a volume fused from rendered views of a bare room, and times both
+     with CUDA events; the rebuilt mirror must equal the tracker's live
+     one bit for bit;
   2. tracks a 96-frame orbit with ICP odometry: ATE < 1 cm and more than
      2000 ICP inliers on each of the last 10 frames;
   3. replays a 40-frame ground-truth walk 1.5 m backwards that shifts
      the volume: shifts fire, their slices hold points, ATE < 1 mm;
+  4. runs the CLI (`--fast -fod -t 16`) in process on a depth-only .klg
+     of a 48-frame walk 1.2 m backwards, the batched offline engine, and
+     the same engine frame by frame (offline_batched=False), twice each
+     in the order A B B A: 48 poses, ATE < 1 cm, shifts, a .pcd with
+     points, and each run's fps;
+  5. resumes phase 3's walk from a checkpoint saved after 20 frames (the
+     restore rebuilds the mirror): the mirror, cw, origin and poses
+     continue exactly;
 
-and checks that phases 2 and 3 launched every kernel. `--trace FRAMES`
+and checks that each run of phases 2-4 launched K1-K4 and phase 5 the
+rebuild, with the counts set to 0 before each phase. `--trace FRAMES`
 then profiles that many further orbit frames (where a frame's time
 goes: host ms untraced and traced, device busy ms and idle share, host
 ms per step stage, kernel launches, the kernels with the most device
@@ -29,7 +40,10 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -53,8 +67,37 @@ OPS_RAY_TAP = 70
 
 ORBIT_FRAMES = 96
 WALK_FRAMES = 40
+ENGINE_FRAMES = 48
+# phase 4's engine runs: (path, batched), batched and per frame as A B B A
+ENGINE_RUNS = (("engine", True), ("engine_per_frame", False),
+               ("engine_per_frame_2", False), ("engine_2", True))
+RESUME_AT = 20  # phase 5 saves after this many frames of the walk
 # the step's torch.profiler ranges (tracking/tracker.py)
 STAGES = ("kt.preprocess", "kt.odometry", "kt.shift", "kt.integrate", "kt.raycast")
+
+
+# The TPU cost-model probes of tools/proto_integrate_pallas.py (P1-P4),
+# not ported yet: their shapes, for the least time the card could take
+# for the same work. Each only copies rows and gathers a few image
+# values per voxel (P3's one-hot matmuls are the TPU's way of doing that
+# gather, not work the function needs), so each is bound by its bytes:
+# rows in and out, each image read once, the ids and corners.
+PROBE_ROWS, PROBE_K, PROBE_N_DYN = 32768 + 8, 8192, 5057
+PROBE_IMG_BYTES = 2 * 480 * 640 * 2 + 3 * 240 * 384 * 2  # img, img2 (bf16)
+
+
+def probe_bounds() -> dict:
+    row = 4 * 128 * 4  # one (4,128) f32 row
+    rows = PROBE_K * 2 * row + PROBE_K * 4  # rows in and out, ids
+    patches = rows + PROBE_IMG_BYTES + 2 * PROBE_K * 4  # + images, corners
+    return {name: dict(bytes=n_bytes, bound_ms=n_bytes / MEM_BYTES_PER_S * 1e3,
+                       bound_by="bytes")
+            for name, n_bytes in (
+                ("P1 run_rows", rows),
+                ("P2 run_dma", patches),
+                ("P3 run_full", patches),
+                ("P4 run_dyn", PROBE_N_DYN * 2 * row + PROBE_K * 4),
+            )}
 
 
 def card_line() -> str:
@@ -118,8 +161,8 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
         free_carve_plain, integrate_plan,
     )
     from kintinuous_tpu_torch.ops.cuda_raycast import (
-        _f32, mirror_refresh, mirror_refresh_plain, ray_setup, raycast_params,
-        tile_raycast, tile_raycast_plain,
+        _f32, build_mirror, build_mirror_plain, mirror_refresh, mirror_refresh_plain,
+        ray_setup, raycast_params, tile_raycast, tile_raycast_plain,
     )
     from kintinuous_tpu_torch.tracking.tracker import Tracker, preprocess_frame
 
@@ -240,6 +283,25 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     )
     del mk, mp, garbage
 
+    # K5 full mirror rebuild of the tracker's volume: bit-equal to its
+    # plain version and to the live mirror that K3 kept current
+    m5 = build_mirror(st.vol.tsdf, R)
+    assert torch.equal(m5.view(torch.int16),
+                       build_mirror_plain(st.vol.tsdf, R).view(torch.int16)), \
+        "mirror rebuild differs from its plain version"
+    assert torch.equal(m5.view(torch.int16), st.logical.view(torch.int16)), \
+        "mirror rebuild differs from the tracker's live mirror"
+    report(
+        "build_mirror", "kintinuous_tpu_torch/csrc/logical.cu",
+        "kintinuous_tpu/ops/pallas_raycast.py:86", 0.0,
+        time_ms(lambda: build_mirror(st.vol.tsdf, R, out=m5)),
+        time_ms(lambda: build_mirror_plain(st.vol.tsdf, R)),
+        R ** 3 * 6, R ** 3 * OPS_MIRROR_VOXEL,
+        library_ms=time_ms(lambda: st.vol.tsdf.view(B, B, B, 8, 8, 8).permute(
+            0, 3, 1, 4, 2, 5).reshape(R, R, R).to(torch.bfloat16)),
+    )
+    del m5
+
     # K4 raycast of the tracker's mirror around the measured depth
     window, newton = 5, cfg.raycast_newton_iters
     dn, _, t_warm = ray_setup(cam_half, T, depth_half)
@@ -318,7 +380,7 @@ def track_orbit(cfg, dev, frames, poses, card: str) -> dict:
     return res
 
 
-def walk_gt(cfg, dev, card: str) -> dict:
+def walk_gt(cfg, dev, card: str) -> tuple:
     """Phase 3: a ground-truth walk of 1.5 m backwards along the optical
     axis. The volume shifts, and the far slabs that leave it cut through
     the objects and the room's back wall, so the slices hold points; the
@@ -351,6 +413,144 @@ def walk_gt(cfg, dev, card: str) -> dict:
     print(json.dumps(res), flush=True)
     assert n_shifts >= 1 and points and min(points) > 0, "no shift or empty slice"
     assert n == WALK_FRAMES and ate < 1e-3, f"walk ATE {ate * 1e3:.3f} mm"
+    return poses, frames
+
+
+def engine_cli(cfg, dev, card: str, log_dir: str, batched: bool) -> dict:
+    """Phase 4: the port's CLI in process on a depth-only .klg of a walk
+    1.2 m backwards (2.5 cm a frame), at config A through its flags
+    (--fast -fod -t 16; the camera, volume size and resolution are
+    cfg's, 640x480 and 512^3 over 6 m). batched: `cli.main`, the batched
+    offline path (one first frame, batches of 8, and the tail); else
+    the same configuration with offline_batched=False through
+    SlamEngine, the per-frame loop. ICP tracks the walk; its poses are
+    held against the ground truth."""
+    from kintinuous_tpu_torch import cli
+    from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
+    from kintinuous_tpu_torch.io.pcd import load_pcd
+    from kintinuous_tpu_torch.io.tum import load_trajectory
+    from kintinuous_tpu_torch.runtime.engine import SlamEngine
+    from kintinuous_tpu_torch.tracking.tracker import Tracker
+
+    seen = {"batches": 0, "engine": None, "fps": None}
+    run, batch = SlamEngine.run, Tracker.process_batch_device
+
+    def run_and_clock(self, *a, **k):
+        out = run(self, *a, **k)
+        seen["engine"], seen["fps"] = self, self.fps  # the engine's own clock
+        return out
+
+    def counted(self, *a, **k):
+        seen["batches"] += 1
+        return batch(self, *a, **k)
+
+    log, gt = f"{log_dir}/walk.klg", f"{log_dir}/walk.gt"
+    base = f"{log_dir}/map_{'batched' if batched else 'per_frame'}"
+    argv = ["-l", log, "--fast", "-fod", "-t", "16", "-o", base,
+            "-c", f"{log_dir}/calib.txt", "-s", str(cfg.volume_size),
+            "--resolution", str(cfg.volume_resolution), "--device", str(dev)]
+    SlamEngine.run, Tracker.process_batch_device = run_and_clock, counted
+    try:
+        t0 = time.perf_counter()
+        # the CLI's own lines (progress, stage means) go into this
+        # phase's JSON line, beside the card
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            if batched:
+                rc = cli.main(argv)
+            else:
+                engine = SlamEngine(cli.build_config(argv).replace(offline_batched=False),
+                                    device=dev)
+                engine.run()
+                engine.save()
+                rc = 0
+        seconds = time.perf_counter() - t0
+    finally:
+        SlamEngine.run, Tracker.process_batch_device = run, batch
+    est_s, est_p = load_trajectory(f"{base}.poses")
+    gt_s, gt_p = load_trajectory(gt)
+    ate, n = absolute_trajectory_error(gt_s, gt_p, est_s, est_p)
+    n_points = len(load_pcd(f"{base}.pcd")["points"])
+    tracker = seen["engine"].tracker
+    n_shifts = sum(1 for s in tracker.shift_log if np.any(s != 0))
+    stats = seen["engine"].sw.stats()
+    res = dict(phase="engine", batched=batched, card=card, frames=ENGINE_FRAMES,
+               rc=rc, seconds_with_save=seconds, fps=seen["fps"], poses=len(est_s),
+               ate_m=ate, matched=n, shift_frames=n_shifts, pcd_points=n_points,
+               batches=seen["batches"],
+               span_mean_ms={k: stats[k]["mean_ms"] for k in
+                             ("processFrame", "SliceProcessor") if k in stats},
+               cli_output=[ln.strip() for ln in out.getvalue().replace("\r", "\n")
+                           .splitlines() if ln.strip()][-5:])
+    print(json.dumps(res), flush=True)
+    assert rc == 0 and len(est_s) == ENGINE_FRAMES and n == ENGINE_FRAMES
+    assert ate < 0.01, f"engine ATE {ate * 100:.2f} cm"
+    assert n_shifts >= 1 and n_points > 0, "no shift or an empty map"
+    if batched:
+        assert seen["batches"] > 0, "the batched step was not called"
+    else:
+        assert seen["batches"] == 0, "the per-frame loop called the batched step"
+    return res
+
+
+def write_engine_log(cfg, log_dir: str) -> None:
+    """Phase 4's input: the walk's depth-only .klg, its ground truth and
+    a calibration file for the CLI's -c."""
+    from kintinuous_tpu_torch.io.synth import generate_klg, straight_trajectory
+
+    poses = straight_trajectory(ENGINE_FRAMES, distance=-1.2, axis=2)
+    generate_klg(f"{log_dir}/walk.klg", cfg.camera, poses, gt_path=f"{log_dir}/walk.gt")
+    cam = cfg.camera
+    with open(f"{log_dir}/calib.txt", "w") as f:
+        f.write(f"{cam.fx} {cam.fy} {cam.cx} {cam.cy} {cam.width} {cam.height}\n")
+
+
+def resume(cfg, dev, poses, frames, card: str) -> dict:
+    """Phase 5: replay the walk for RESUME_AT frames, save a checkpoint,
+    restore it into a fresh Tracker (the mirror is rebuilt by K5), and
+    continue both trackers over the rest of the walk: the restored mirror
+    is bit-equal to the live one, and after the rest cw is bit-equal,
+    the origin equal and the poses within 1e-5."""
+    import tempfile
+
+    import torch
+
+    from kintinuous_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+    from kintinuous_tpu_torch.tracking.tracker import Tracker
+
+    def feed(tr, i0, i1):
+        for i in range(i0, i1):
+            tr.process_frame(*frames[i], i * 33333,
+                             ext_delta=gt_delta(poses[i - 1] if i else None, poses[i]))
+        tr.flush()
+
+    a = Tracker(cfg, device=dev)
+    feed(a, 0, RESUME_AT)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/resume.npz"
+        t0 = time.perf_counter()
+        save_checkpoint(path, a)
+        t_save = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        b = load_checkpoint(path, Tracker(cfg, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t_load = time.perf_counter() - t0
+    mirror_equal = torch.equal(a.state.logical.view(torch.int16),
+                               b.state.logical.view(torch.int16))
+    feed(a, RESUME_AT, len(poses))
+    feed(b, RESUME_AT, len(poses))
+    cw_equal = torch.equal(a.state.vol.cw, b.state.vol.cw)
+    origin_equal = torch.equal(a.state.vol.origin, b.state.vol.origin)
+    pose_err = float(np.abs(np.array(a.poses) - np.array(b.poses)).max())
+    res = dict(phase="resume", card=card, frames=len(poses), resumed_at=RESUME_AT,
+               save_s=t_save, load_s=t_load, checkpoint_mb=mb,
+               mirror_bit_equal=mirror_equal, cw_bit_equal=cw_equal,
+               origin_equal=origin_equal, pose_max_abs_err=pose_err,
+               shift_frames=sum(1 for s in a.shift_log if np.any(s != 0)))
+    print(json.dumps(res), flush=True)
+    assert mirror_equal, "the restored mirror differs from the live one"
+    assert cw_equal and origin_equal and pose_err <= 1e-5, "resume is not exact"
     return res
 
 
@@ -420,14 +620,19 @@ def profile_orbit(cfg, dev, frames, card: str, n: int) -> dict:
 
 
 def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
-    """All phases on `dev`; returns the kernel rows with the main path's
-    launch counts."""
+    """All phases on `dev`; returns the kernel rows with the launch
+    counts of the paths phases 2-5 drive (each engine run is a path)."""
+    import tempfile
+
+    from kintinuous_tpu_torch.backend import native_ops
     from kintinuous_tpu_torch.io.synth import Scene, orbit_trajectory, render_frame
     from kintinuous_tpu_torch.ops.cuda_integrate import band_fusion, free_carve
-    from kintinuous_tpu_torch.ops.cuda_raycast import mirror_refresh, tile_raycast
+    from kintinuous_tpu_torch.ops.cuda_raycast import (
+        build_mirror, mirror_refresh, tile_raycast)
 
     wrappers = {"band_fusion": band_fusion, "free_carve": free_carve,
-                "mirror_refresh": mirror_refresh, "tile_raycast": tile_raycast}
+                "mirror_refresh": mirror_refresh, "build_mirror": build_mirror,
+                "tile_raycast": tile_raycast}
     poses = orbit_trajectory(12, radius=0.06, angle_deg=3.0)
     # the bare room leaves free space in front of its walls: the carve
     # gets blocks to work on (the default scene's objects sit too close
@@ -436,14 +641,36 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     rows = check_kernels(cfg, dev, room, poses, card)
     frames = [render_frame(Scene.default(), cfg.camera, T) for T in poses]
 
-    for w in wrappers.values():
-        w.launches = 0
-    track_orbit(cfg, dev, frames, poses, card)
-    walk_gt(cfg, dev, card)
-    launches = {name: w.launches for name, w in wrappers.items()}
-    for name, n in launches.items():
-        assert n > 0, f"{name} was not launched on the main path"
-        rows[name]["launches"] = n
+    # each path runs with the counts set to 0 just before it, read just after
+    by_path = {}
+
+    def counted(path, fn, *args):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn(*args)
+        by_path[path] = {name: w.launches for name, w in wrappers.items()}
+        return out
+
+    counted("orbit", track_orbit, cfg, dev, frames, poses, card)
+    walk_poses, walk_frames = counted("walk", walk_gt, cfg, dev, card)
+    # the slice processor's native library is built before the engine
+    # runs, so none of them pays for the build
+    native_ops.available()
+    with tempfile.TemporaryDirectory() as d:
+        write_engine_log(cfg, d)
+        # batched and per frame, in the order A B B A, so that a drift of
+        # the host's speed during the phase falls on both alike
+        for path, batched in ENGINE_RUNS:
+            counted(path, engine_cli, cfg, dev, card, d, batched)
+    counted("resume", resume, cfg, dev, walk_poses, walk_frames, card)
+    for path in ("orbit", "walk") + tuple(p for p, _ in ENGINE_RUNS):
+        # K1-K4 run on every frame
+        for name in ("band_fusion", "free_carve", "mirror_refresh", "tile_raycast"):
+            assert by_path[path][name] > 0, f"{name} was not launched on the {path} path"
+    assert by_path["resume"]["build_mirror"] > 0, "restore did not launch the rebuild"
+    for name in wrappers:
+        rows[name]["launches"] = sum(p[name] for p in by_path.values())
+        rows[name]["launches_by_path"] = {k: p[name] for k, p in by_path.items()}
     if trace_frames:
         profile_orbit(cfg, dev, frames, card, trace_frames)
     return [rows[name] for name in wrappers]
@@ -476,6 +703,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     rows = run(cfg, dev, card, args.trace)
+    print(json.dumps({"probe_bounds": probe_bounds(), "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

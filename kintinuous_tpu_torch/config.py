@@ -119,21 +119,14 @@ class KintinuousConfig:
     # Pallas TPU kernels (None = auto: on when running on TPU). The
     # XLA fast path remains as the CPU/test implementation.
     pallas: Optional[bool] = None
-    # offline fast-mode logs: process in pipelined device batches (the
-    # throughput path). False forces the per-frame loop — useful when an
-    # untimed run should reuse the per-frame program's compile cache
-    # instead of paying the batch program's (much longer) XLA compile.
+    # offline fast-mode logs: an uploader thread decodes the log and
+    # uploads batches of offline_batch_size frames ahead of the step
+    # (runtime/engine.py); False runs the per-frame loop
     offline_batched: bool = True
-    # frames per batched dispatch in the offline engine loop; a trailing
-    # partial batch runs per-frame so only ONE batch program compiles
     offline_batch_size: int = 8
-    # device pool rows for batched-dispatch slice accumulation: every
-    # shift event appends its extraction (<= extraction_capacity
-    # points) at a running offset, so a batch carries as many shift
-    # events as fit — no fixed per-axis slot count to overflow (round
-    # 3's 8-slot array dropped 24/134 bands on a shift-heavy walk).
-    # Pool exhaustion parks the write and is counted in
-    # stats["batch_slices_dropped"], never silent.
+    # the JAX package's device pools for a batch's slices and mesh
+    # patches; kept so the two configs have the same fields. The port's
+    # batch is the per-frame step in a loop and keeps every slice.
     batch_slice_pool: int = 3_000_000
     batch_mesh_vertex_pool: int = 1_600_000
     batch_mesh_face_pool: int = 3_200_000

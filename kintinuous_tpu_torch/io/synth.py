@@ -2,9 +2,10 @@
 
 The subset of kintinuous_tpu/io/synth.py that drives the port without
 a dataset: the analytic room + spheres + cuboids scene with checker
-albedo, its renderer, and the orbit and straight-line trajectories.
-Frames and poses come out identical to the JAX package's, so both
-packages can be fed the same sequence.
+albedo, its renderer, the orbit and straight-line trajectories, and
+`generate_klg`, which renders a trajectory into a `.klg` log. Frames
+and poses come out identical to the JAX package's, so both packages
+can be fed the same sequence.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from kintinuous_tpu_torch.config import CameraIntrinsics
+from kintinuous_tpu_torch.io.klg import KlgLogWriter, jpeg_codec
+from kintinuous_tpu_torch.io.tum import save_trajectory
 
 
 @dataclass
@@ -201,3 +204,33 @@ def straight_trajectory(n_frames: int, distance: float, axis: int = 0) -> List[n
         T[axis, 3] = distance * i / max(n_frames - 1, 1)
         poses.append(T)
     return poses
+
+
+def generate_klg(
+    path: str,
+    cam: CameraIntrinsics,
+    poses: List[np.ndarray],
+    scene: Optional[Scene] = None,
+    fps: float = 30.0,
+    depth_noise_mm: float = 0.0,
+    gt_path: Optional[str] = None,
+    color: bool = False,
+) -> None:
+    """Render `poses` into a `.klg` log at `fps` (and their TUM ground
+    truth into gt_path). Depth is always written; JPEG colour only when
+    `color` is asked for and an encoder (cv2 or PIL) exists, else the
+    frames carry no image. The depth noise draws from the JAX package's
+    seed, so both packages write the same depth."""
+    scene = scene or Scene.default()
+    if color:
+        try:
+            jpeg_codec()
+        except RuntimeError:
+            color = False
+    rng = np.random.default_rng(7)
+    with KlgLogWriter(path) as w:
+        for i, T in enumerate(poses):
+            depth, rgb = render_frame(scene, cam, T, depth_noise_mm, rng)
+            w.write(int(i * 1e6 / fps), depth, rgb if color else None)
+    if gt_path:
+        save_trajectory(gt_path, [i / fps for i in range(len(poses))], poses)

@@ -1,9 +1,12 @@
-"""Mirror refresh and warm-started raycast on the card (counterpart of
-kintinuous_tpu/ops/pallas_raycast.py: update_logical_pairs,
-raycast_pallas and its post step).
+"""Mirror refresh, mirror rebuild and warm-started raycast on the card
+(counterpart of kintinuous_tpu/ops/pallas_raycast.py:
+update_logical_pairs, build_logical_bf16, raycast_pallas and its post
+step).
 
 The raycast reads a dense (R,R,R) bf16 mirror of the blocked volume
-that integration keeps current (`mirror_refresh`, csrc/logical.cu).
+that integration keeps current (`mirror_refresh`, csrc/logical.cu);
+`build_mirror` (same source) rebuilds it whole, on checkpoint restore
+and for a raycast given no mirror.
 `tile_raycast` (csrc/raycast.cu) marches each half-resolution pixel
 around its warm-start depth; PyTorch code around it builds the warm
 start, and turns the hits into vertex, normal, colour and depth maps
@@ -18,18 +21,23 @@ plain PyTorch version only for CPU tensors; it counts its launches in
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from kintinuous_tpu_torch.config import CameraIntrinsics
 from kintinuous_tpu_torch.ops import kernels as K
 from kintinuous_tpu_torch.ops import maps as map_ops
-from kintinuous_tpu_torch.ops.blocked import BLOCK, flat_index
+from kintinuous_tpu_torch.ops.blocked import BLOCK, blocked_to_dense, flat_index
 from kintinuous_tpu_torch.ops.raycast_fast import FastRaycastResult
 from kintinuous_tpu_torch.ops.reduce import round_to_int
 from kintinuous_tpu_torch.ops.tsdf import unpack_cw
 
-_SIGNATURES_LOGICAL = {"kt_mirror_refresh": (K.P,) * 4 + (K.I,) * 3 + (K.P,)}
+_SIGNATURES_LOGICAL = {
+    "kt_mirror_refresh": (K.P,) * 4 + (K.I,) * 3 + (K.P,),
+    "kt_deblock": (K.P, K.P, K.I, K.I, K.P),
+}
 _SIGNATURES_RAYCAST = {
     "kt_tile_raycast": (K.P,) * 8 + (K.I,) * 3 + (K.F,) * 7 + (K.I, K.I, K.P),
 }
@@ -79,6 +87,42 @@ def mirror_refresh(tsdf, mirror, pairs, count) -> None:
 
 
 mirror_refresh.launches = 0
+
+
+def build_mirror_plain(tsdf, R: int, out=None) -> torch.Tensor:
+    """Plain version of the full-rebuild kernel: the dense (R,R,R) bf16
+    mirror of the blocked tsdf, round to nearest even, zero as +0.0."""
+    dense = blocked_to_dense(tsdf)
+    mirror = torch.where(dense == 0, 0.0, dense).to(torch.bfloat16)
+    if out is None:
+        return mirror
+    out.copy_(mirror)
+    return out
+
+
+def build_mirror(tsdf, R: int, out=None) -> torch.Tensor:
+    """The dense (R,R,R) bf16 mirror of the blocked (B^3,4,128) f32 tsdf,
+    in (z,y,x) order with wrap 0 (replaces pallas_raycast._deblock_kernel,
+    the counterpart of build_logical_bf16). Written into `out` when one
+    is given, else into a new tensor. R is any multiple of 8."""
+    if tsdf.device.type == "cpu":
+        return build_mirror_plain(tsdf, R, out)
+    if out is None:
+        out = torch.empty((R, R, R), dtype=torch.bfloat16, device=tsdf.device)
+    K.require_cuda("build_mirror", tsdf, out)
+    B = R // BLOCK
+    if tsdf.shape != (B ** 3, 4, 128) or tsdf.dtype != torch.float32 \
+            or out.shape != (R, R, R) or out.dtype != torch.bfloat16:
+        raise ValueError(f"build_mirror: want a ({B ** 3},4,128) f32 tsdf and an "
+                         f"({R},{R},{R}) bf16 mirror")
+    lib = K.library("logical", _SIGNATURES_LOGICAL)
+    err = lib.kt_deblock(tsdf.data_ptr(), out.data_ptr(), B, R, K.stream_of(tsdf))
+    K.check(err, "kt_deblock")
+    build_mirror.launches += 1
+    return out
+
+
+build_mirror.launches = 0
 
 
 # ---------------------------------------------------------------- march
@@ -235,12 +279,16 @@ def ray_setup(cam: CameraIntrinsics, T, measured_depth):
 
 
 def raycast_cuda(vol, cam: CameraIntrinsics, T, measured_depth, voxel_size: float, volume_size: float,
-                 trunc_dist: float, mirror: torch.Tensor, window: int = 5,
-                 newton: int = 1) -> FastRaycastResult:
+                 trunc_dist: float, mirror: Optional[torch.Tensor] = None,
+                 window: int = 5, newton: int = 1) -> FastRaycastResult:
     """Predicted vertex/normal maps at the (half-resolution) camera `cam`
     from the mirror, warm-started from the measured depth. Pixels with
     no model hit but a measurement take the measurement's own vertex and
-    normal; `fallback_frac` is their share of the in-volume rays."""
+    normal; `fallback_frac` is their share of the in-volume rays. Without
+    a mirror, one is built from the volume first (`build_mirror`), as
+    raycast_pallas does."""
+    if mirror is None:
+        mirror = build_mirror(vol.tsdf, vol.resolution)
     R = mirror.shape[0]
     inv_vsz = 1.0 / voxel_size
     Rot = T[:3, :3]

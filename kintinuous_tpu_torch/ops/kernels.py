@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -37,6 +38,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# builds and loads may come from several threads (the engine builds at
+# start-up in the background): one at a time
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -59,7 +63,11 @@ def _target(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile the named sources (default: all) that are not built yet,
     in parallel. Returns {name: seconds} for the ones it compiled."""
-    names = list(SOURCES if names is None else names)
+    with _LOCK:
+        return _build(list(SOURCES if names is None else names))
+
+
+def _build(names) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -87,16 +95,17 @@ def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built if needed, with the
     argument types of its C functions set (every function returns the
     launch's cudaGetLastError() as an int)."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
 
 
 def check(err: int, fn: str) -> None:

@@ -26,7 +26,7 @@ from kintinuous_tpu_torch.config import CameraIntrinsics
 from kintinuous_tpu_torch.ops.blocked import BLOCK, CELLS
 from kintinuous_tpu_torch.ops.maps import quantize_color_w
 from kintinuous_tpu_torch.ops.reduce import _INT_CLAMP, round_to_int
-from kintinuous_tpu_torch.ops.tsdf import scale_depth, to_u8
+from kintinuous_tpu_torch.ops.tsdf import scale_depth, sqrt_rn, to_u8
 
 DEFAULT_CELL = 32  # classification mip cell in pixels
 OUT, FREE, BAND = 0, 1, 2
@@ -130,7 +130,7 @@ def classify_blocks(vol, cam: CameraIntrinsics, tables: DepthTables,
     y = bc(Rcl[1, 0] * wx, Rcl[1, 1] * wy, Rcl[1, 2] * wz, tcl[1])
     z = bc(Rcl[2, 0] * wx, Rcl[2, 1] * wy, Rcl[2, 2] * wz, tcl[2])
 
-    r_c = torch.sqrt(x * x + y * y + z * z)
+    r_c = sqrt_rn(x * x + y * y + z * z)
     behind = z < -r_half
     zs = torch.clamp(z, min=1e-6)
     u = x / zs * cam.fx + cam.cx
@@ -179,9 +179,11 @@ def compact_block_lists(cls: torch.Tensor, band_cap: int,
                         free_cap: int = FREE_CAP) -> BlockLists:
     """BAND and FREE block ids compacted to the front of two capped
     lists in one scatter (blocks past a cap are dropped, as in the JAX
-    package). The counts stay on the device."""
+    package). The counts stay on the device. A cap above the volume's
+    block count changes nothing but the padding, so it is cut to it."""
     flat = cls.reshape(-1)
     dev = flat.device
+    band_cap, free_cap = min(band_cap, flat.numel()), min(free_cap, flat.numel())
     bandb = flat == BAND
     freeb = flat == FREE
     bidx = torch.cumsum(bandb.to(torch.int32), 0) - 1
@@ -242,7 +244,7 @@ def fuse_band_rows(t8, c8, band_ids, valid_block, img_rows, Tinv, wrap,
     b_new = (samp_aux & 0xFF).to(torch.float32)
 
     valid = in_img & (samp_ray > 0) & valid_block
-    vox_ray = torch.sqrt(x * x + y * y + z * z)
+    vox_ray = sqrt_rn(x * x + y * y + z * z)
     sdf = samp_ray - vox_ray
     fuse = valid & (sdf >= -trunc_dist)
     tsdf_new = torch.clamp(sdf / trunc_dist, max=1.0)

@@ -1,5 +1,6 @@
-"""Coarse-to-fine ICP odometry (port of kintinuous_tpu/tracking/odometry.py:
-build_map_pyramid, pyramid_from_maps, icp_odometry).
+"""Coarse-to-fine ICP odometry and ground-truth replay (port of
+kintinuous_tpu/tracking/odometry.py: build_map_pyramid,
+pyramid_from_maps, icp_odometry, GroundTruthOdometry).
 
 Returns T_curr_to_prev: the transform taking current-frame camera
 points into the previous camera frame; the tracker composes
@@ -11,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from kintinuous_tpu_torch.config import CameraIntrinsics
@@ -74,3 +76,36 @@ def icp_odometry(cam: CameraIntrinsics, curr_pyr: MapPyramid,
             T_prior=T_prior, prior_weight=prior_weight,
         )
     return T, count, residual
+
+
+class GroundTruthOdometry:
+    """Replays a loaded trajectory (host-side numpy): the inter-frame
+    delta in the previous camera's frame, independent of the world
+    basis. A frame without a pose within max_dt seconds gets identity."""
+
+    def __init__(self, stamps_s: np.ndarray, poses: np.ndarray, max_dt: float = 0.02):
+        self._stamps = np.asarray(stamps_s)
+        self._poses = np.asarray(poses)
+        self._max_dt = max_dt
+        self._last: Optional[np.ndarray] = None
+
+    def _lookup(self, timestamp_us: int) -> Optional[np.ndarray]:
+        t = timestamp_us / 1e6
+        i = int(np.argmin(np.abs(self._stamps - t)))
+        if abs(self._stamps[i] - t) > self._max_dt:
+            return None
+        return self._poses[i]
+
+    def delta(self, timestamp_us: int) -> np.ndarray:
+        """T_curr_to_prev for this frame (identity if the pose is missing)."""
+        T = self._lookup(timestamp_us)
+        if T is None or self._last is None:
+            if T is not None:
+                self._last = T
+            return np.eye(4, dtype=np.float32)
+        d = np.linalg.inv(self._last) @ T
+        self._last = T
+        return d.astype(np.float32)
+
+    def has_pose(self, timestamp_us: int) -> bool:
+        return self._lookup(timestamp_us) is not None

@@ -1,6 +1,7 @@
 """The fast tracker step (port of the fast-mode parts of
 kintinuous_tpu/tracking/tracker.py: TrackerState, StepOutputs,
-CloudSlice, make_step_fast, Tracker).
+CloudSlice, make_step_fast, Tracker with its per-frame and batched
+paths).
 
 One frame: bilateral filter, metres, half-resolution pyramids, ICP
 odometry (or an external delta), the shift decision with band
@@ -14,7 +15,14 @@ shift counts, after odometry. A static-mode step (no shifts) reads
 nothing. The stages run inside torch.profiler ranges (kt.preprocess,
 kt.odometry, kt.shift, kt.integrate, kt.raycast) that a trace can sum.
 Outputs are consumed one frame late, so downloading poses and slices
-overlaps the next frame's device work.
+overlaps the next device work.
+
+The JAX package's batched step (make_batched_step_fast) scans a batch
+in one program and reads its outputs one batch late, with the batch's
+slices in a fixed-size device pool. Eager PyTorch launches every
+frame's work either way, and the shift read already waits for the
+device on every frame, so here a batch is the per-frame step in a loop
+(`Tracker.process_batch_device`) and keeps every slice.
 """
 
 from __future__ import annotations
@@ -363,7 +371,8 @@ class Tracker:
         self.collect_slices: bool = True
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        # a decoded log frame is a read-only view: copied only then
+        t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
         if self.device.type == "cuda":
             # pinned + non_blocking: the upload does not wait for the
             # previous frame's device work
@@ -389,10 +398,57 @@ class Tracker:
             self.state, out = self._step_ext(self.state, d, c, self._upload(delta))
         else:
             self.state, out = self._step_odom(self.state, d, c, None)
+        self._push(out, timestamp_us)
+
+    def _push(self, out: StepOutputs, timestamp_us: int) -> None:
+        """Queue a frame's outputs and consume the previous frame's."""
         self._pending.append((out, timestamp_us, self._frame_idx))
         self._frame_idx += 1
         while len(self._pending) > 1:
             self._consume(*self._pending.popleft())
+
+    def process_frames(self, frames) -> None:
+        """Batched offline path: frames is a list of (depth_u16 (H,W),
+        rgb_u8 (H,W,3) or None, timestamp_us). The first frame of a run
+        goes through process_frame (identity delta); the rest run as one
+        batch with odometry on every frame."""
+        while frames and self._frame_idx == 0:
+            self.process_frame(*frames[0])
+            frames = frames[1:]
+        if not frames:
+            return
+        self.process_batch_device(*self.upload_batch(frames))
+        self.flush()
+
+    def upload_batch(self, frames):
+        """Host -> device upload of a frame batch, callable from a
+        prefetch thread so the copy overlaps device work. Returns
+        (depths, rgbs, ts_list) for process_batch_device."""
+        H, W = self.cfg.camera.height, self.cfg.camera.width
+        depths = np.stack([np.asarray(f[0], np.uint16) for f in frames])
+        rgbs = np.stack([np.asarray(f[1], np.uint8) if f[1] is not None
+                         else np.zeros((H, W, 3), np.uint8) for f in frames])
+        return self._upload(depths), self._upload(rgbs), [f[2] for f in frames]
+
+    def process_batch_device(self, depths, rgbs, ts_list) -> None:
+        """A batch of uploaded frames (depths (B,H,W), rgbs (B,H,W,3) on
+        the device): the per-frame step with odometry on each, outputs
+        consumed one frame late as in process_frame."""
+        if self._frame_idx == 0:
+            raise ValueError("the first frame must go through process_frame")
+        for d, c, ts in zip(depths, rgbs, ts_list):
+            self.state, out = self._step_odom(self.state, d, c, None)
+            self._push(out, ts)
+
+    def warm_per_frame_step(self) -> None:
+        """Build the CUDA kernels ahead of need, so the offline tail's
+        first per-frame step does not pay for it inside the run (the JAX
+        package compiles its per-frame program here; PyTorch has nothing
+        to compile). Safe to call from a background thread."""
+        if self.device.type == "cuda":
+            from kintinuous_tpu_torch.ops import kernels
+
+            kernels.build()
 
     def _consume(self, out: StepOutputs, timestamp_us: int, frame_idx: int) -> None:
         counts = [s.count if s is not None else torch.zeros_like(out.shift[0])

@@ -17,8 +17,8 @@ from kintinuous_tpu_torch.ops.cuda_integrate import (
     band_fusion, band_fusion_plain, dirty_pairs, free_carve, free_carve_plain,
     integrate_plan)
 from kintinuous_tpu_torch.ops.cuda_raycast import (
-    mirror_refresh, mirror_refresh_plain, ray_setup, raycast_params, tile_raycast,
-    tile_raycast_plain)
+    build_mirror, build_mirror_plain, mirror_refresh, mirror_refresh_plain, ray_setup,
+    raycast_params, tile_raycast, tile_raycast_plain)
 from kintinuous_tpu_torch.tracking.tracker import Tracker, preprocess_frame
 
 torch.set_num_threads(2)
@@ -118,6 +118,25 @@ def test_mirror_refresh_is_bit_exact(frame_on_card, case):
         assert torch.equal(got, blocked_to_dense(st.vol.tsdf).to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("R", [256, 72], ids=["tracker_volume", "odd_blocks"])
+def test_build_mirror_is_bit_exact(frame_on_card, R):
+    """The full rebuild equals its plain version bit for bit, and on the
+    tracker's volume the mirror that the refreshes kept; R=72 has an
+    odd block count."""
+    _, st, _, _, _, _, _ = frame_on_card
+    if R == 256:
+        tsdf = st.vol.tsdf
+    else:
+        gen = torch.Generator(device=st.vol.tsdf.device).manual_seed(2)
+        tsdf = torch.randn(((R // 8) ** 3, 4, 128), generator=gen, device=st.vol.tsdf.device)
+        tsdf[::3, 1, :7] = -0.0
+    got = build_mirror(tsdf, R)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), build_mirror_plain(tsdf, R).view(torch.int16))
+    if R == 256:
+        assert torch.equal(got.view(torch.int16), st.logical.view(torch.int16))
+
+
 def test_tile_raycast_matches_its_plain_version(frame_on_card):
     """Where both hit, depth within 1e-3 m and gradient within 1e-3;
     at most 0.1 % of pixels may disagree on a hit."""
@@ -152,3 +171,24 @@ def test_tracker_on_the_card_follows_the_cpu(card):
     assert band_fusion.launches >= before + len(frames)
     np.testing.assert_allclose(np.array(runs[0].poses), np.array(runs[1].poses), atol=1e-4)
     assert np.array_equal(np.array(runs[0].shift_log), np.array(runs[1].shift_log))
+
+
+def test_batched_step_on_the_card_follows_the_cpu(card):
+    """process_frames on the card and on the CPU: poses within 1e-4 (as
+    the per-frame test above), the same shifts and slices."""
+    from kintinuous_tpu_torch.io.synth import straight_trajectory
+
+    cfg = cfg_small()
+    poses = straight_trajectory(10, distance=-0.6, axis=2)
+    items = [(*render_frame(Scene.default(), CAM, T), i * 33333) for i, T in enumerate(poses)]
+    runs = []
+    for dev in (card, "cpu"):
+        tr = Tracker(cfg, device=dev)
+        tr.process_frames(items)
+        runs.append(tr)
+    np.testing.assert_allclose(np.array(runs[0].poses), np.array(runs[1].poses), atol=1e-4)
+    assert np.array_equal(np.array(runs[0].shift_log), np.array(runs[1].shift_log))
+    # K1's tsdf may differ from the plain version's by 1e-7: a zero
+    # crossing can move, so slice sizes agree to 1 %
+    na, nb = ([len(s.points) for s in r.slices] for r in runs)
+    assert len(na) == len(nb) and all(abs(a - b) <= 0.01 * max(a, b) for a, b in zip(na, nb))

@@ -17,6 +17,7 @@ from kintinuous_tpu.ops.tsdf_fast import integrate_fast as j_integrate_fast
 from kintinuous_tpu_torch.ops.blocked import blocked_to_dense
 from kintinuous_tpu_torch.ops.cuda_integrate import (
     free_carve, integrate_cuda, integrate_plan)
+from kintinuous_tpu_torch.ops.tsdf import sqrt_rn
 from tests.test_torch_package import port_cam, port_vol, tt
 
 torch.set_num_threads(2)
@@ -46,11 +47,44 @@ def unpack(cw):
     return [((c >> s) & 0xFF).astype(np.int64) for s in (24, 16, 8, 0)]
 
 
-def assert_volumes_match(vj, vp, tsdf_atol, w_mis_max, both_fused_colour=True):
+def voxel_pixels(rows, cells, wrap, poses, R=128):
+    """The float64 pixel coordinate (x, y), before rounding, of each
+    voxel (block row, cell) under each camera pose: (n_poses, n, 2)."""
+    B = R // 8
+    p = np.stack([(rows % B) * 8 + (cells & 7),
+                  (rows // B) % B * 8 + ((cells >> 3) & 7),
+                  rows // (B * B) * 8 + (cells >> 6)], axis=1)
+    g = (np.mod(p - np.asarray(wrap)[None], R) + 0.5) * CFG.voxel_size
+    out = []
+    for T in poses:
+        Ti = np.linalg.inv(np.asarray(T, np.float64))
+        c = g @ Ti[:3, :3].T + Ti[:3, 3]
+        out.append(np.stack([c[:, 0] / c[:, 2] * CAM.fx + CAM.cx,
+                             c[:, 1] / c[:, 2] * CAM.fy + CAM.cy], axis=1))
+    return np.array(out)
+
+
+def mismatch_report(vj, vp, poses, first=8):
+    """Row, cell, both weights, both tsdf values and the float64 pixel
+    coordinate of the first voxels whose weights differ."""
+    tj, tp = np.asarray(vj.tsdf).reshape(-1, 512), vp.tsdf.numpy().reshape(-1, 512)
+    wj, wp = (unpack(c)[0].reshape(-1, 512) for c in (vj.cw, vp.cw.numpy()))
+    rows, cells = np.nonzero(wj != wp)
+    rows, cells = rows[:first], cells[:first]
+    px = voxel_pixels(rows, cells, np.asarray(vj.wrap), poses)
+    return "\n".join(
+        f"row {r} cell {c}: weight jax {wj[r, c]} port {wp[r, c]}, tsdf jax "
+        f"{tj[r, c]!r} port {tp[r, c]!r}, pixel (x, y) per frame {px[:, k].tolist()}"
+        for k, (r, c) in enumerate(zip(rows, cells)))
+
+
+def assert_volumes_match(vj, vp, tsdf_atol, w_mis_max, both_fused_colour=True,
+                         poses=()):
     tj, tp = np.asarray(vj.tsdf), vp.tsdf.numpy()
     (wj, *cj), (wp, *cp) = unpack(vj.cw), unpack(vp.cw.numpy())
     mis = (wj != wp).mean()
-    assert mis <= w_mis_max, f"weight mismatch fraction {mis}"
+    assert mis <= w_mis_max, (
+        f"weight mismatch fraction {mis}\n{mismatch_report(vj, vp, poses)}")
     same = wj == wp
     np.testing.assert_allclose(tp[same], tj[same], atol=tsdf_atol)
     sel = same & (wj > 0) & (wp > 0) if both_fused_colour else same
@@ -69,16 +103,26 @@ def test_band_fusion_and_carve_match_integrate_fast(case):
     if case == "wrap":
         vj = vj._replace(wrap=jnp.array([8, 16, 8], jnp.int32))
     vp = port_vol(vj)
-    for Tw in poses:
+    Ts = [pose_of(Tw) for Tw in poses]
+    for Tw, T in zip(poses, Ts):
         dm, rgb, cw = frame_inputs(Tw)
-        T = pose_of(Tw)
         vj = j_integrate_fast(vj, CAM, jnp.asarray(dm), jnp.asarray(rgb), jnp.asarray(cw),
                               jnp.asarray(T), CFG.voxel_size, CFG.trunc_dist, 128.0,
                               band_cap=2048)
         integrate_cuda(vp, PCAM, tt(dm), tt(rgb), tt(cw), tt(T), CFG.voxel_size,
                        CFG.trunc_dist, 128.0, band_cap=2048)
     assert (unpack(vj.cw)[0] > 0).sum() > 10_000
-    assert_volumes_match(vj, vp, 1e-5, 0.0, both_fused_colour=False)
+    assert_volumes_match(vj, vp, 1e-5, 0.0, both_fused_colour=False, poses=Ts)
+
+
+def test_sqrt_rn_is_correctly_rounded():
+    """The fusion's ray lengths take sqrt_rn: equal to numpy's correctly
+    rounded f32 sqrt on every input (torch.sqrt on the CPU goes through
+    MKL, which on AVX-512 is one ulp off on some inputs)."""
+    a = np.random.default_rng(5).uniform(1e-3, 40.0, 200_003).astype(np.float32)
+    got = sqrt_rn(torch.from_numpy(a)).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), np.sqrt(a).view(np.int32))
 
 
 @pytest.mark.parametrize("n_frames", [1, 2])
