@@ -10,8 +10,9 @@ prediction, 16-voxel shifts, ICP odometry):
   1. holds each kernel (band fusion, free carve, mirror refresh, mirror
      rebuild, raycast) against its plain PyTorch version on the card, on
      a volume fused from rendered views of a bare room, and times both
-     with CUDA events; the rebuilt mirror must equal the tracker's live
-     one bit for bit;
+     with CUDA events from a cold L2 (the kernel also warm, and on the
+     host's clock with its launch work); the rebuilt mirror must equal
+     the tracker's live one bit for bit;
   2. tracks a 96-frame orbit with ICP odometry: ATE < 1 cm and more than
      2000 ICP inliers on each of the last 10 frames;
   3. replays a 40-frame ground-truth walk 1.5 m backwards that shifts
@@ -24,9 +25,21 @@ prediction, 16-voxel shifts, ICP odometry):
   5. resumes phase 3's walk from a checkpoint saved after 20 frames (the
      restore rebuilds the mirror): the mirror, cw, origin and poses
      continue exactly;
+  6. tracks phase 2's orbit at config B (config A plus fused ICP+RGB-D
+     odometry, icp_plus_rgbd=True) with the rendered colour: ATE < 1 cm
+     and RGB inliers on every tracked frame;
+  7. runs the CLI once more on phase 4's log with meshing (`-m`): 48
+     poses, ATE < 1 cm, band mesh patches from the shifts, and a .ply
+     with faces that io/ply.load_ply reads back;
+  8. runs the probe tool (kintinuous_tpu_torch.tools.proto_integrate,
+     the port of tools/proto_integrate_pallas.py) at its shapes, then
+     holds each probe kernel (P1-P4) against its plain version bit for
+     bit and times it beside its bound, its plain version and, for P1
+     and P4, PyTorch's index_add_;
 
-and checks that each run of phases 2-4 launched K1-K4 and phase 5 the
-rebuild, with the counts set to 0 before each phase. `--trace FRAMES`
+and checks that each run of phases 2-4, 6 and 7 launched K1-K4, phase 5
+the rebuild and phase 8 the four probes, with the counts set to 0 before
+each path. `--trace FRAMES`
 then profiles that many further orbit frames (where a frame's time
 goes: host ms untraced and traced, device busy ms and idle share, host
 ms per step stage, kernel launches, the kernels with the most device
@@ -76,28 +89,38 @@ RESUME_AT = 20  # phase 5 saves after this many frames of the walk
 STAGES = ("kt.preprocess", "kt.odometry", "kt.shift", "kt.integrate", "kt.raycast")
 
 
-# The TPU cost-model probes of tools/proto_integrate_pallas.py (P1-P4),
-# not ported yet: their shapes, for the least time the card could take
-# for the same work. Each only copies rows and gathers a few image
-# values per voxel (P3's one-hot matmuls are the TPU's way of doing that
-# gather, not work the function needs), so each is bound by its bytes:
-# rows in and out, each image read once, the ids and corners.
-PROBE_ROWS, PROBE_K, PROBE_N_DYN = 32768 + 8, 8192, 5057
-PROBE_IMG_BYTES = 2 * 480 * 640 * 2 + 3 * 240 * 384 * 2  # img, img2 (bf16)
+ORBIT_RGBD_FRAMES = 96  # phase 6, config B
 
 
-def probe_bounds() -> dict:
+def probe_bytes(x, n_dyn: int) -> dict:
+    """The bytes each probe (P1-P4, tools/proto_integrate_pallas.py) must
+    move on these inputs: each selected row read and written once, the
+    ids (and corners) it reads (P4: the first n, since blocks past n
+    return first), and each distinct image value it reads once. Each
+    only copies rows and gathers a few image values a float (P3's one-hot
+    matmuls are the TPU's way of doing that gather, not work the function
+    needs), so each is bound by its bytes."""
+    import torch
+
+    from kintinuous_tpu_torch.tools.proto_integrate import PH, PW
+
+    k = x.ids.shape[0]
     row = 4 * 128 * 4  # one (4,128) f32 row
-    rows = PROBE_K * 2 * row + PROBE_K * 4  # rows in and out, ids
-    patches = rows + PROBE_IMG_BYTES + 2 * PROBE_K * 4  # + images, corners
-    return {name: dict(bytes=n_bytes, bound_ms=n_bytes / MEM_BYTES_PER_S * 1e3,
-                       bound_by="bytes")
-            for name, n_bytes in (
-                ("P1 run_rows", rows),
-                ("P2 run_dma", patches),
-                ("P3 run_full", patches),
-                ("P4 run_dyn", PROBE_N_DYN * 2 * row + PROBE_K * 4),
-            )}
+    rows = k * 2 * row + k * 4
+    cy, cx = (c.long()[:, None, None] for c in (x.cy, x.cx))
+    H, W = x.img.shape[1:]
+    H2, W2 = x.img2.shape[1:]
+    s = torch.arange(4, device=cy.device)[None, :, None]
+    lane = torch.arange(128, device=cy.device)[None, None, :]
+    p2 = torch.unique((cy + s) * W + cx + lane).numel()  # img[0] corners
+    a = x.tsdf[x.ids.long()].abs()
+    u = torch.clamp(a * 100.0, 0, PW - 1).long()
+    v = torch.clamp(a * 70.0, 0, PH - 1).long()
+    p3 = 2 * torch.unique((cy + v) * W + cx + u).numel()
+    p3_2 = 3 * torch.unique((cy // 2 + v // 2) * W2 + u // 2).numel()
+    return {"probe_rows": rows, "probe_dma": rows + 2 * k * 4 + p2 * 2,
+            "probe_full": rows + 2 * k * 4 + (p3 + p3_2) * 2,
+            "probe_dyn": n_dyn * (2 * row + 4) + 4}
 
 
 def card_line() -> str:
@@ -108,9 +131,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Median of `reps` timed calls after one warm-up: CUDA events on the
-    card, the host clock on the CPU (rehearsals only)."""
+def windows() -> dict:
+    """The card's timers by name: device ms from a cold L2 ("cold"),
+    device ms without the flush ("warm"), and host ms of the call until
+    the card has run it, launch work included ("host")."""
+    from kintinuous_tpu_torch.ops import kernels
+
+    return {"cold": kernels.cuda_window_ms,
+            "warm": lambda fn: kernels.cuda_window_ms(fn, cold=False),
+            "host": kernels.host_window_ms}
+
+
+def time_ms(fn, reps: int = 10, mode: str = "cold") -> float:
+    """Median of `reps` timed calls after one warm-up, on the card by the
+    timer `mode` of windows(), on the CPU by the host clock (rehearsals
+    only)."""
     import torch
 
     fn()
@@ -118,13 +153,7 @@ def time_ms(fn, reps: int = 10) -> float:
     times = []
     for _ in range(reps):
         if cuda:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
+            times.append(windows()[mode](fn))
         else:
             t0 = time.perf_counter()
             fn()
@@ -184,12 +213,20 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     assert nb > 0 and nf > 0, f"frame has {nb} band and {nf} free blocks"
     rows = {}
 
-    def report(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
-               library_ms=None, **extra):
+    def report(name, source, replaces, err, kernel, plain, n_bytes, n_ops,
+               library=None, **extra):
+        """One kernel's row: kernel, plain and library are the calls
+        timed from a cold L2, the kernel also warm, and the kernel and
+        library on the host's clock (host_ms)."""
         b_ms, b_by = bound(n_bytes, n_ops)
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=library_ms, card=card, **extra)
+                   max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=time_ms(library) if library else None, card=card,
+                   ms_warm_l2=time_ms(kernel, mode="warm"),
+                   host_ms=time_ms(kernel, mode="host"),
+                   library_host_ms=time_ms(library, mode="host") if library else None,
+                   **extra)
         rows[name] = row
         print(json.dumps(row), flush=True)
 
@@ -213,8 +250,8 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     report(
         "band_fusion", "kintinuous_tpu_torch/csrc/integrate.cu",
         "kintinuous_tpu/ops/pallas_integrate.py:68", t_err,
-        time_ms(lambda: band_fusion(*k1_args(tk, ck))),
-        time_ms(lambda: band_fusion_plain(*k1_args(tp, cp))),
+        lambda: band_fusion(*k1_args(tk, ck)),
+        lambda: band_fusion_plain(*k1_args(tp, cp)),
         nb * 512 * 16 + tables.img_rows.numel() * 4 + nb * 4,
         nb * 512 * OPS_BAND_VOXEL,
         weight_mismatch=w_mis, colour_err=c_err, blocks=nb,
@@ -231,8 +268,8 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     report(
         "free_carve", "kintinuous_tpu_torch/csrc/integrate.cu",
         "kintinuous_tpu/ops/pallas_integrate.py:247", 0.0,
-        time_ms(lambda: free_carve(tk, ck, lists.free_ids, lists.n_free, mw)),
-        time_ms(lambda: free_carve_plain(tp, cp, lists.free_ids, lists.n_free, mw)),
+        lambda: free_carve(tk, ck, lists.free_ids, lists.n_free, mw),
+        lambda: free_carve_plain(tp, cp, lists.free_ids, lists.n_free, mw),
         nf * 512 * 16 + nf * 4, nf * 512 * OPS_FREE_VOXEL, blocks=nf,
     )
     del tp, cp
@@ -271,12 +308,13 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     report(
         "mirror_refresh", "kintinuous_tpu_torch/csrc/logical.cu",
         "kintinuous_tpu/ops/pallas_raycast.py:170", 0.0,
-        time_ms(lambda: mirror_refresh(tk, mk, all_pairs, n_all)),
-        time_ms(lambda: mirror_refresh_plain(tk, mp, all_pairs, n_all)),
+        lambda: mirror_refresh(tk, mk, all_pairs, n_all),
+        lambda: mirror_refresh_plain(tk, mp, all_pairs, n_all),
         R ** 3 * 6 + (B * B // 2) * 4, R ** 3 * OPS_MIRROR_VOXEL,
-        library_ms=time_ms(library_rebuild),
+        library=library_rebuild,
         case="dirty_all (shift frame: every row-pair)",
         ms_partial=time_ms(lambda: mirror_refresh(tk, mk, pairs, count)),
+        host_ms_partial=time_ms(lambda: mirror_refresh(tk, mk, pairs, count), mode="host"),
         bound_ms_partial=bound(n_dirty * pair_vox * 6 + n_dirty * 4,
                                n_dirty * pair_vox * OPS_MIRROR_VOXEL)[0],
         pairs_partial=n_dirty,
@@ -294,11 +332,11 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     report(
         "build_mirror", "kintinuous_tpu_torch/csrc/logical.cu",
         "kintinuous_tpu/ops/pallas_raycast.py:86", 0.0,
-        time_ms(lambda: build_mirror(st.vol.tsdf, R, out=m5)),
-        time_ms(lambda: build_mirror_plain(st.vol.tsdf, R)),
+        lambda: build_mirror(st.vol.tsdf, R, out=m5),
+        lambda: build_mirror_plain(st.vol.tsdf, R),
         R ** 3 * 6, R ** 3 * OPS_MIRROR_VOXEL,
-        library_ms=time_ms(lambda: st.vol.tsdf.view(B, B, B, 8, 8, 8).permute(
-            0, 3, 1, 4, 2, 5).reshape(R, R, R).to(torch.bfloat16)),
+        library=lambda: st.vol.tsdf.view(B, B, B, 8, 8, 8).permute(
+            0, 3, 1, 4, 2, 5).reshape(R, R, R).to(torch.bfloat16),
     )
     del m5
 
@@ -339,7 +377,7 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     report(
         "tile_raycast", "kintinuous_tpu_torch/csrc/raycast.cu",
         "kintinuous_tpu/ops/pallas_raycast.py:314", max(d_err, g_err),
-        time_ms(lambda: k4(tile_raycast)), time_ms(lambda: k4(tile_raycast_plain)),
+        lambda: k4(tile_raycast), lambda: k4(tile_raycast_plain),
         n_px * 24 + n_vox * 2, n_px * (OPS_RAY_PIXEL + OPS_RAY_TAP * (window + newton)),
         found_mismatch=found_mis, depth_err=d_err, grad_err=g_err,
         hits=int(fk.sum()), pixels=n_px,
@@ -554,6 +592,164 @@ def resume(cfg, dev, poses, frames, card: str) -> dict:
     return res
 
 
+def track_orbit_rgbd(cfg, dev, frames, poses, card: str) -> dict:
+    """Phase 6: config B, phase 2's orbit tracked with fused ICP+RGB-D
+    odometry on the rendered colour, through Tracker.process_frame (the
+    colour goes in directly: a .klg would carry it as JPEG, and the card's
+    machine has no JPEG codec). In this mode icp_count is the RGB inlier
+    count."""
+    import torch
+
+    from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
+    from kintinuous_tpu_torch.tracking.tracker import Tracker
+
+    tr = Tracker(cfg, device=dev)
+    gt = []
+    t0 = time.perf_counter()
+    for i in range(ORBIT_RGBD_FRAMES):
+        k = pingpong(i, len(frames))
+        tr.process_frame(*frames[k], i * 33333)
+        gt.append(poses[k])
+    tr.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    stamps = np.arange(len(gt)) * 33333 / 1e6
+    ate, n = absolute_trajectory_error(stamps, np.array(gt),
+                                       np.array(tr.stamps_us) / 1e6, np.array(tr.poses))
+    inliers = tr.stats["icp_count"][1:]  # frame 0 is placed, not tracked
+    res = dict(phase="orbit_rgbd", card=card, config="B (A + icp_plus_rgbd)",
+               frames=ORBIT_RGBD_FRAMES, seconds=elapsed,
+               fps=ORBIT_RGBD_FRAMES / elapsed, ate_m=ate, matched=n,
+               rgb_inliers_min=min(inliers),
+               rgb_inliers_min_last10=min(inliers[-10:]),
+               raycast_fallback_mean=float(np.mean(tr.stats["raycast_fallback"])))
+    print(json.dumps(res), flush=True)
+    assert n == ORBIT_RGBD_FRAMES and min(inliers) > 0, "RGB-D lost its inliers"
+    assert ate < 0.01, f"config B orbit ATE {ate * 100:.2f} cm"
+    return res
+
+
+def engine_mesh(cfg, dev, card: str, log_dir: str) -> dict:
+    """Phase 7: the CLI on phase 4's log with meshing (`--fast -fod -t
+    16 -m`): band mesh patches on the shifts, and the welded whole-map
+    mesh (every patch and the live volume's mesh) in <base>.ply."""
+    from kintinuous_tpu_torch import cli
+    from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
+    from kintinuous_tpu_torch.io.ply import load_ply
+    from kintinuous_tpu_torch.io.tum import load_trajectory
+    from kintinuous_tpu_torch.runtime.engine import SlamEngine
+
+    from kintinuous_tpu_torch.tracking.tracker import Tracker
+
+    seen = {}
+    run, finalise = SlamEngine.run, Tracker.finalise
+
+    def run_and_clock(self, *a, **k):
+        out = run(self, *a, **k)
+        seen["engine"], seen["fps"] = self, self.fps
+        return out
+
+    def finalise_after_bands(self):
+        seen["bands"] = len(self.mesh_patches)  # the patches of the shifts
+        return finalise(self)
+
+    base = f"{log_dir}/map_mesh"
+    argv = ["-l", f"{log_dir}/walk.klg", "--fast", "-fod", "-t", "16", "-m", "-o", base,
+            "-c", f"{log_dir}/calib.txt", "-s", str(cfg.volume_size),
+            "--resolution", str(cfg.volume_resolution), "--device", str(dev)]
+    SlamEngine.run, Tracker.finalise = run_and_clock, finalise_after_bands
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        SlamEngine.run, Tracker.finalise = run, finalise
+    est_s, est_p = load_trajectory(f"{base}.poses")
+    gt_s, gt_p = load_trajectory(f"{log_dir}/walk.gt")
+    ate, n = absolute_trajectory_error(gt_s, gt_p, est_s, est_p)
+    mesh = load_ply(f"{base}.ply")
+    tracker = seen["engine"].tracker
+    bands = tracker.mesh_patches[:seen["bands"]]
+    res = dict(phase="engine_mesh", card=card, frames=ENGINE_FRAMES, rc=rc,
+               seconds_with_save=seconds, fps=seen["fps"], poses=len(est_s),
+               ate_m=ate, matched=n,
+               shift_frames=sum(1 for s in tracker.shift_log if np.any(s != 0)),
+               band_patches=len(bands),
+               band_faces=[len(p.faces) for p in bands],
+               ply_vertices=len(mesh["vertices"]), ply_faces=len(mesh.get("faces", ())))
+    print(json.dumps(res), flush=True)
+    assert rc == 0 and len(est_s) == ENGINE_FRAMES and n == ENGINE_FRAMES
+    assert ate < 0.01, f"meshing engine ATE {ate * 100:.2f} cm"
+    assert bands and all(len(p.faces) > 0 for p in bands), "no band mesh patch"
+    assert res["ply_faces"] > 0 and np.isfinite(mesh["vertices"]).all(), "empty .ply"
+    return res
+
+
+def check_probes(dev, card: str) -> dict:
+    """Phase 8: each probe kernel (P1-P4) against its plain version on
+    the tool's inputs, bit for bit, timed (volume cloned outside the
+    timed window) beside its bound, its plain version and, where one
+    PyTorch call computes the same function (P1, and P4 with n on the
+    host), that call. Device times start from a cold L2; the kernel's
+    is also taken warm (ms_warm_l2: the clone just written, no flush),
+    and host_ms holds the launch work too."""
+    import torch
+
+    from kintinuous_tpu_torch.tools import proto_integrate as P
+
+    timer = windows()
+
+    x = P.make_inputs(dev)
+    corners = (x.cy, x.cx)
+    n = torch.tensor(P.N_DYN, dtype=torch.int32, device=dev)
+    ones = torch.ones((x.ids.shape[0], 4, 128), dtype=torch.float32, device=dev)
+    ids_l = x.ids.long()
+    n_bytes = probe_bytes(x, P.N_DYN)
+    rows = {}
+    for name, src, kernel, plain, args, library in (
+        ("probe_rows", 61, P.run_rows, P.run_rows_plain, (x.ids,),
+         lambda vol, ids: vol.index_add_(0, ids_l, ones)),
+        ("probe_dma", 118, P.run_dma, P.run_dma_plain,
+         (x.ids, corners, x.img, x.img2), None),
+        ("probe_full", 180, P.run_full, P.run_full_plain,
+         (x.ids, corners, x.img, x.img2), None),
+        ("probe_dyn", 200, lambda vol, ids: P.run_dyn(n, vol, ids),
+         lambda vol, ids: P.run_dyn_plain(n, vol, ids), (x.ids,),
+         lambda vol, ids: vol.index_add_(0, ids_l[:P.N_DYN], ones[:P.N_DYN])),
+    ):
+        got, want = x.tsdf.clone(), x.tsdf.clone()
+        kernel(got, *args)
+        plain(want, *args)
+        exact = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        changed = int((got != x.tsdf).any(dim=(1, 2)).sum())
+        err = float((got - want).abs().max())
+        assert exact, f"{name} differs from its plain version (max {err})"
+        if library is not None:
+            lib = x.tsdf.clone()
+            library(lib, *args)
+            assert torch.equal(lib.view(torch.int32), want.view(torch.int32)), \
+                f"{name}: index_add_ differs"
+        b_ms, b_by = bound(n_bytes[name], 0)
+        row = dict(name=name, route="cuda", source="kintinuous_tpu_torch/csrc/probes.cu",
+                   replaces=f"tools/proto_integrate_pallas.py:{src}", max_abs_err=err,
+                   ms=P.time_in_place(kernel, x.tsdf, *args),
+                   plain_ms=P.time_in_place(plain, x.tsdf, *args),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=(P.time_in_place(library, x.tsdf, *args)
+                               if library is not None else None),
+                   card=card, bytes=n_bytes[name], rows_changed=changed,
+                   ms_warm_l2=P.time_in_place(kernel, x.tsdf, *args, timer=timer["warm"]),
+                   host_ms=P.time_in_place(kernel, x.tsdf, *args, timer=timer["host"]),
+                   library_host_ms=(P.time_in_place(library, x.tsdf, *args,
+                                                    timer=timer["host"])
+                                    if library is not None else None))
+        rows[name] = row
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def profile_orbit(cfg, dev, frames, card: str, n: int) -> dict:
     """Where a tracked orbit frame's time goes: 8 warm-up frames, `n`
     frames timed on the host clock, then `n` more under torch.profiler."""
@@ -629,10 +825,13 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     from kintinuous_tpu_torch.ops.cuda_integrate import band_fusion, free_carve
     from kintinuous_tpu_torch.ops.cuda_raycast import (
         build_mirror, mirror_refresh, tile_raycast)
+    from kintinuous_tpu_torch.tools import proto_integrate as P
 
     wrappers = {"band_fusion": band_fusion, "free_carve": free_carve,
                 "mirror_refresh": mirror_refresh, "build_mirror": build_mirror,
-                "tile_raycast": tile_raycast}
+                "tile_raycast": tile_raycast, "probe_rows": P.run_rows,
+                "probe_dma": P.run_dma, "probe_full": P.run_full,
+                "probe_dyn": P.run_dyn}
     poses = orbit_trajectory(12, radius=0.06, angle_deg=3.0)
     # the bare room leaves free space in front of its walls: the carve
     # gets blocks to work on (the default scene's objects sit too close
@@ -662,12 +861,24 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
         # the host's speed during the phase falls on both alike
         for path, batched in ENGINE_RUNS:
             counted(path, engine_cli, cfg, dev, card, d, batched)
-    counted("resume", resume, cfg, dev, walk_poses, walk_frames, card)
-    for path in ("orbit", "walk") + tuple(p for p, _ in ENGINE_RUNS):
+        counted("resume", resume, cfg, dev, walk_poses, walk_frames, card)
+        counted("orbit_rgbd", track_orbit_rgbd, cfg.replace(icp_plus_rgbd=True), dev,
+                frames, poses, card)
+        counted("engine_mesh", engine_mesh, cfg, dev, card, d)
+    # the probe tool's own entry point at its shapes
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        counted("probe_tool", P.main, ["--device", str(dev)])
+    print(json.dumps({"phase": "probe_tool", "card": card,
+                      "output": out.getvalue().splitlines()}), flush=True)
+    rows.update(check_probes(dev, card))
+    for path in ("orbit", "walk", "orbit_rgbd", "engine_mesh") + tuple(
+            p for p, _ in ENGINE_RUNS):
         # K1-K4 run on every frame
         for name in ("band_fusion", "free_carve", "mirror_refresh", "tile_raycast"):
             assert by_path[path][name] > 0, f"{name} was not launched on the {path} path"
     assert by_path["resume"]["build_mirror"] > 0, "restore did not launch the rebuild"
+    for name in ("probe_rows", "probe_dma", "probe_full", "probe_dyn"):
+        assert by_path["probe_tool"][name] > 0, f"the probe tool did not launch {name}"
     for name in wrappers:
         rows[name]["launches"] = sum(p[name] for p in by_path.values())
         rows[name]["launches_by_path"] = {k: p[name] for k, p in by_path.items()}
@@ -703,7 +914,6 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     rows = run(cfg, dev, card, args.trace)
-    print(json.dumps({"probe_bounds": probe_bounds(), "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """kintinuous_tpu_torch — the PyTorch/CUDA port of kintinuous_tpu.
 
-The fast tracker step (bilateral filter, half-resolution ICP, rolling
-volume shifts with slice extraction, block-classified TSDF fusion and
-the warm-started raycast against a dense bf16 mirror) written as plain
-PyTorch around four CUDA C++ kernels for Hopper (csrc/). The JAX
-package beside it is the reference this port is tested against; the
-port imports nothing from it.
+The fast tracker step (bilateral filter, half-resolution ICP or fused
+ICP+RGB-D odometry, rolling volume shifts with slice extraction and
+band meshes, block-classified TSDF fusion and the warm-started raycast
+against a dense bf16 mirror) and the offline runtime around it, written
+as plain PyTorch around hand-written CUDA C++ kernels for Hopper
+(csrc/). The JAX package beside it is the reference this port is tested
+against; the port imports nothing from it.
 
 Entry points take ``device=None``, meaning CUDA, and raise when no card
 is present unless the caller passes ``device="cpu"``; on the CPU every

@@ -2,14 +2,18 @@
 port's own copy of kintinuous_tpu/backend/native_ops.py's loader.
 
 The library is built from native/cloud_ops.cpp by `make -C native` at
-first use when it is missing. Without it (no compiler, a failed build)
-every function returns None and the slice processor takes its
-numpy/scipy path.
+first use when it is missing. The build and the load hold an exclusive
+lock on native/.libcloud_ops.lock, so a process of this package never
+loads the file while another of them is still writing it (parallel test
+workers build at once). Without it (no compiler, a failed build) every
+function returns None and the slice processor takes its numpy/scipy
+path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import subprocess
 import threading
 from pathlib import Path
@@ -38,15 +42,14 @@ class _Loader:
     @staticmethod
     def _load():
         path = NATIVE / "libcloud_ops.so"
-        if not path.exists():
-            try:
-                subprocess.run(["make", "-C", str(NATIVE), "libcloud_ops.so"],
-                               check=True, capture_output=True, timeout=120)
-            except (OSError, subprocess.SubprocessError):
-                return None
         try:
-            lib = ctypes.CDLL(str(path))
-        except OSError:
+            with open(NATIVE / ".libcloud_ops.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+                if not path.exists():
+                    subprocess.run(["make", "-C", str(NATIVE), "libcloud_ops.so"],
+                                   check=True, capture_output=True, timeout=120)
+                lib = ctypes.CDLL(str(path))
+        except (OSError, subprocess.SubprocessError):
             return None
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cloud_voxel_downsample.restype = I

@@ -16,13 +16,13 @@ JAX package's (kintinuous_tpu/cli.py):
     -it <thresh>       pose-graph residual gate (default 10)
     -f                 flip RGB/BGR colours at ingest
     -sm                static mode (no shifting)
-    -m                 mesh output                        (not ported)
+    -m                 mesh output (<basename>.ply)
     -od                online deformation (loop closure)  (not ported)
     -no                disable shift-overlap extraction
     -nos               disable overlap removal on save
-    -r                 RGB-D odometry                     (not ported)
-    -ri                fused ICP + RGB-D odometry         (not ported)
-    -ftf               frame-to-frame RGB-D               (not ported)
+    -r                 RGB-D odometry
+    -ri                fused ICP + RGB-D odometry
+    -ftf               frame-to-frame RGB-D
     -fod               fast odometry
     -fl                fast loops
     -d                 dynamic cube positioning
@@ -118,11 +118,7 @@ def _parser() -> argparse.ArgumentParser:
 
 _UNPORTED = (  # (flag, argparse dest, is-set test)
     ("-live", "live_source", bool),
-    ("-m", "mesh", bool),
     ("-od", "online_deformation", bool),
-    ("-r", "rgbd", bool),
-    ("-ri", "rgbd_icp", bool),
-    ("-ftf", "ftf", bool),
     ("--viz-port", "viz_port", lambda v: v is not None),
     ("--devices > 1", "devices", lambda v: v > 1),
     ("--num-processes > 1", "num_processes", lambda v: v > 1),

@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("integrate", "logical", "raycast")
+SOURCES = ("integrate", "logical", "raycast", "probes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -115,6 +115,46 @@ def check(err: int, fn: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# a device-side wait of about 0.6 ms at the H100's clock, queued before
+# a timed window opens
+SPIN_CYCLES = 1_000_000
+# written before a cold window: more than the H100's 50 MB L2
+FLUSH_BYTES = 128 << 20
+_FLUSH: Dict[int, torch.Tensor] = {}
+
+
+def cuda_window_ms(fn, cold: bool = True) -> float:
+    """Device ms from one CUDA event to the next around fn() on the
+    current device. With `cold`, a 128 MB buffer is written first, so the
+    window starts with none of fn's inputs in L2. A spin is then queued,
+    so the host's launch work (Python, the wrapper, ctypes) happens while
+    the card is still busy and the window holds the device work only;
+    host_window_ms times that launch work."""
+    dev = torch.cuda.current_device()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if cold:
+        if dev not in _FLUSH:
+            _FLUSH[dev] = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+        _FLUSH[dev].zero_()
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def host_window_ms(fn) -> float:
+    """Host ms from calling fn() on an idle card until the card has run
+    it: the wrapper's launch work (Python, ctypes) and the device work
+    together, which is what a host-bound step pays for the call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def require_cuda(fn: str, *tensors: torch.Tensor) -> None:

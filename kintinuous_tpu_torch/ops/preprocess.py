@@ -1,6 +1,7 @@
-"""Depth preprocessing (port of kintinuous_tpu/ops/preprocess.py).
+"""Depth and intensity preprocessing (port of
+kintinuous_tpu/ops/preprocess.py).
 
-Window ops are sums of statically shifted copies of a padded image,
+Window ops are sums of statically shifted copies of a zero-padded image,
 accumulated in the same order as the JAX package so the two agree to
 rounding. Depth maps are float32 with 0 marking invalid pixels.
 """
@@ -64,10 +65,49 @@ def pyr_down_depth(depth: torch.Tensor, sigma: float = 3.0 * 30.0) -> torch.Tens
     return _subsample2(torch.where(depth > 0, out, 0.0))
 
 
+_BINOMIAL5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
+
+
+def pyr_down_gauss(img: torch.Tensor) -> torch.Tensor:
+    """5x5 binomial blur (rows, then columns, zero padding) and a
+    stride-2 downsample, for intensity images."""
+    H, W = img.shape
+    p = _padded(img, 2)
+    tmp = torch.zeros_like(img)
+    for k, dy in zip(_BINOMIAL5, range(-2, 3)):
+        tmp = tmp + k * _window(p, 2, dy, 0, H, W)
+    p = _padded(tmp, 2)
+    out = torch.zeros_like(img)
+    for k, dx in zip(_BINOMIAL5, range(-2, 3)):
+        out = out + k * _window(p, 2, 0, dx, H, W)
+    return _subsample2(out)
+
+
 def depth_to_metres(depth_mm: torch.Tensor, max_depth_m: float = 6.0) -> torch.Tensor:
     """mm -> metres; 0 marks invalid, far-clip to 0."""
     d = depth_mm.to(torch.float32) * 1e-3
     return torch.where((d > 0) & (d < max_depth_m), d, 0.0)
+
+
+def rgb_to_intensity(rgb: torch.Tensor) -> torch.Tensor:
+    """(H,W,3) RGB -> (H,W) float32 luma in [0,255]."""
+    r, g, b = (rgb[..., c].to(torch.float32) for c in range(3))
+    return 0.299 * r + 0.587 * g + 0.114 * b
+
+
+def sobel_gradients(img: torch.Tensor):
+    """3x3 Sobel dI/dx, dI/dy scaled by 1/8 (zero padding)."""
+    H, W = img.shape
+    p = _padded(img, 1)
+
+    def s(dy, dx):
+        return _window(p, 1, dy, dx, H, W)
+
+    gx = ((s(-1, 1) + 2.0 * s(0, 1) + s(1, 1))
+          - (s(-1, -1) + 2.0 * s(0, -1) + s(1, -1))) * 0.125
+    gy = ((s(1, -1) + 2.0 * s(1, 0) + s(1, 1))
+          - (s(-1, -1) + 2.0 * s(-1, 0) + s(-1, 1))) * 0.125
+    return gx, gy
 
 
 def depth_discontinuity_mask(depth_m: torch.Tensor, radius: int = 3,

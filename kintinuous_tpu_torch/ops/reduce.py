@@ -1,6 +1,6 @@
 """Point-to-plane ICP systems and the 6x6 solve (port of
 kintinuous_tpu/ops/reduce.py: icp_associate, icp_build_from_assoc,
-_cholesky_solve6, solve_gn, add_motion_prior, icp_solve_level).
+icp_step, _cholesky_solve6, solve_gn, add_motion_prior, icp_solve_level).
 
 Every GN step stays on the device: the association, the system build
 (two matmuls), the unrolled Cholesky solve and the accept test are
@@ -114,6 +114,20 @@ def icp_build_from_assoc(T_curr_to_prev, vmap_curr, nmap_curr, d, n, in_img,
     b = a @ r
     return GNSystem(A=A, b=b, count=mask.sum().to(torch.float32),
                     residual=torch.sum(r * r))
+
+
+def icp_step(cam: CameraIntrinsics, T_curr_to_prev, vmap_curr, nmap_curr,
+             vmap_prev, nmap_prev, dist_thresh: float = 0.10,
+             angle_thresh_sin: float = math.sin(math.radians(20.0)),
+             packed_prev=None) -> GNSystem:
+    """One point-to-plane build at one level with its own projective
+    association (the same arithmetic as associate + build)."""
+    if packed_prev is None:
+        packed_prev = pack_maps(vmap_prev, nmap_prev)
+    d, n, in_img = icp_associate(cam, T_curr_to_prev, vmap_curr, packed_prev,
+                                 tuple(vmap_prev.shape[1:]))
+    return icp_build_from_assoc(T_curr_to_prev, vmap_curr, nmap_curr, d, n, in_img,
+                                dist_thresh, angle_thresh_sin)
 
 
 def _cholesky_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,7 @@ kintinuous_tpu/runtime/checkpoint.py, fast mode).
 
 save_checkpoint / load_checkpoint
     the tracker: blocked volume, pose and prediction, emitted slices
-    (with their processed payloads), trajectory, stats.
+    (with their processed payloads), mesh patches, trajectory, stats.
 save_engine_checkpoint / load_engine_checkpoint
     the tracker plus the engine's counters and the slice processor's
     pool, for an engine without online deformation.
@@ -13,10 +13,12 @@ The file format is the JAX package's: one compressed npz with a JSON
 either package loads into the other. The dense bf16 mirror is not
 saved: restore rebuilds it from the volume with `build_mirror` (K5),
 as the JAX package's _rebuild_logical does with build_logical_bf16.
+The RGB-D pyramid is not saved either: a restored tracker keeps the one
+it was built with, as the JAX package's does.
 
 Not ported yet: the pose-graph, deformation and place-recognition
-fields of an engine checkpoint of an -od run, and incremental-mesh
-patches; a file that holds them raises NotImplementedError.
+fields of an engine checkpoint of an -od run; a file that holds them
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import json
 import numpy as np
 import torch
 
+from kintinuous_tpu_torch.backend.meshing import MeshPatch
 from kintinuous_tpu_torch.ops.blocked import BlockedVolume
 from kintinuous_tpu_torch.ops.cuda_raycast import build_mirror
 from kintinuous_tpu_torch.tracking.tracker import CloudSlice, Tracker
@@ -62,6 +65,24 @@ def _unpack_slice(data, meta: dict, prefix: str) -> CloudSlice:
     )
 
 
+def _pack_patch(arrays: dict, meta: dict, prefix: str, p: MeshPatch) -> None:
+    arrays[f"{prefix}_vertices"] = p.vertices
+    arrays[f"{prefix}_colors"] = p.colors
+    arrays[f"{prefix}_faces"] = p.faces
+    if p.cells is not None:
+        arrays[f"{prefix}_cells"] = p.cells
+    meta[prefix] = {"timestamp_us": p.timestamp_us, "cells": p.cells is not None}
+
+
+def _unpack_patch(data, meta: dict, prefix: str) -> MeshPatch:
+    m = meta[prefix]
+    return MeshPatch(
+        vertices=data[f"{prefix}_vertices"], colors=data[f"{prefix}_colors"],
+        faces=data[f"{prefix}_faces"], timestamp_us=m["timestamp_us"],
+        cells=data[f"{prefix}_cells"] if m["cells"] else None,
+    )
+
+
 def _tracker_payload(tracker: Tracker):
     tracker.flush()
     st = tracker.state
@@ -89,19 +110,18 @@ def _tracker_payload(tracker: Tracker):
     meta = {
         "frame_idx": tracker._frame_idx,
         "n_slices": len(tracker.slices),
-        "n_patches": 0,
+        "n_patches": len(tracker.mesh_patches),
         "stats": sorted(tracker.stats.keys()),
         "fast_mode": bool(tracker.cfg.fast_mode),
     }
     for i, sl in enumerate(tracker.slices):
         _pack_slice(arrays, meta, f"slice{i}", sl)
+    for i, p in enumerate(tracker.mesh_patches):
+        _pack_patch(arrays, meta, f"patch{i}", p)
     return arrays, meta
 
 
 def _restore_tracker(data, meta, tracker: Tracker) -> Tracker:
-    if meta.get("n_patches", 0):
-        raise NotImplementedError(
-            "this checkpoint holds incremental-mesh patches: meshing is not ported yet")
     dev = tracker.device
 
     def t(name, dtype=np.float32):
@@ -119,7 +139,8 @@ def _restore_tracker(data, meta, tracker: Tracker) -> Tracker:
     if bool(vol.wrap.any()):
         raise ValueError("the mirror needs a wrap-free volume (wrap == 0)")
     st = tracker.state
-    # dc and pw derive from the configuration: keep the fresh values
+    # dc and pw derive from the configuration, and the RGB-D pyramid is
+    # the fresh tracker's: keep them
     tracker.state = st._replace(
         vol=vol, pose=t("pose"), pred_vmap=t("pred_vmap"), pred_nmap=t("pred_nmap"),
         pred_pose=t("pred_pose"), frame=t("frame", np.int32),
@@ -136,6 +157,8 @@ def _restore_tracker(data, meta, tracker: Tracker) -> Tracker:
     tracker._frame_idx = int(meta["frame_idx"])
     tracker.slices = [_unpack_slice(data, meta, f"slice{i}")
                       for i in range(meta["n_slices"])]
+    tracker.mesh_patches = [_unpack_patch(data, meta, f"patch{i}")
+                            for i in range(meta.get("n_patches", 0))]
     return tracker
 
 

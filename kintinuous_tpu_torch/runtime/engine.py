@@ -4,15 +4,16 @@ without online deformation).
 The frame loop runs on the caller's thread and feeds the Tracker; its
 slices go through a queue to a SliceProcessor worker thread. At the end
 of the log the tracker emits the FINAL slice, the worker drains its
-queue, and `save` writes the map (`.pcd`) and the trajectory (`.poses`,
-TUM). Offline fast-mode runs take the batched path: an uploader thread
+queue, and `save` writes the map (`.pcd`), the trajectory (`.poses`,
+TUM) and, with meshing on, the welded whole-map mesh (`.ply`). Offline fast-mode runs take the batched path: an uploader thread
 decodes the log and uploads full batches ahead of the step; the first
 frame runs alone, then batches of cfg.offline_batch_size, then the
 partial tail frame by frame.
 
 Not ported yet, and raising NotImplementedError rather than running
 something else: online deformation (place recognition, pose graph,
-deformation), meshing, several devices or processes, live capture.
+deformation, and with it the deformed mesh of -m -od), several devices
+or processes, live capture.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from kintinuous_tpu_torch.backend.meshing import MeshCollector, mesh_current_volume
 from kintinuous_tpu_torch.backend.slice_proc import SliceProcessor
 from kintinuous_tpu_torch.config import KintinuousConfig
 from kintinuous_tpu_torch.io.klg import KlgLogReader
@@ -36,7 +38,6 @@ _SENTINEL = object()
 def check_engine_supported(cfg: KintinuousConfig) -> None:
     for name, unported in (
         ("online_deformation", cfg.online_deformation),
-        ("mesh", cfg.mesh),
         ("devices > 1", cfg.devices > 1),
         ("num_processes > 1", cfg.num_processes > 1),
         ("live_source", bool(cfg.live_source)),
@@ -261,12 +262,22 @@ class SlamEngine:
 
     # ------------------------------------------------------------ saves
     def save(self, basename: Optional[str] = None) -> dict:
-        """Write the map (`<base>.pcd`) and the trajectory (`<base>.poses`)."""
+        """Write the map (`<base>.pcd`), the trajectory (`<base>.poses`)
+        and with meshing on the whole-map mesh (`<base>.ply`): every band
+        patch emitted on the shifts welded with the live volume's mesh."""
         base = basename or self.cfg.save_file
         out = {"cloud": f"{base}.pcd", "poses": f"{base}.poses"}
         self.slice_proc.save(out["cloud"], deoverlap=self.cfg.save_deoverlap)
         save_trajectory(out["poses"], [t / 1e6 for t in self.tracker.stamps_us],
                         self.tracker.poses)
+        if self.cfg.mesh:
+            out["mesh"] = f"{base}.ply"
+            mc = MeshCollector()
+            for p in self.tracker.mesh_patches:
+                mc.add(p)
+            # cell welding removes the overlap with the FINAL patch
+            mc.add(mesh_current_volume(self.tracker, self.cfg))
+            mc.save(out["mesh"])
         return out
 
     def complete(self):

@@ -3,11 +3,13 @@ kintinuous_tpu/tracking/tracker.py: TrackerState, StepOutputs,
 CloudSlice, make_step_fast, Tracker with its per-frame and batched
 paths).
 
-One frame: bilateral filter, metres, half-resolution pyramids, ICP
-odometry (or an external delta), the shift decision with band
-extraction and the roll of the blocked volume, block-classified fusion
-with the mirror refresh, and the warm-started raycast that predicts the
-next frame's maps. The volume and the mirror are updated in place.
+One frame: bilateral filter, metres, half-resolution pyramids, ICP or
+fused ICP+RGB-D odometry (or an external delta), the shift decision with
+band extraction (and, with meshing on, the band's surface-nets mesh) and
+the roll of the blocked volume, block-classified fusion with the mirror
+refresh, and the warm-started raycast that predicts the next frame's
+maps. The volume and the mirror are updated in place; the RGB-D pyramid
+of the frame is carried to the next one in the state.
 
 The shift decision is the step's only host synchronisation: `jax.lax.
 cond` on the shift becomes a Python `if` on one host read of the three
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from kintinuous_tpu_torch.backend.meshing import MeshPatch, patch_from_result
 from kintinuous_tpu_torch.config import KintinuousConfig
 from kintinuous_tpu_torch.device import resolve_device
 from kintinuous_tpu_torch.geometry import se3
@@ -52,11 +55,13 @@ from kintinuous_tpu_torch.ops.blocked import (
 )
 from kintinuous_tpu_torch.ops.cuda_integrate import integrate_cuda
 from kintinuous_tpu_torch.ops.cuda_raycast import raycast_cuda
-from kintinuous_tpu_torch.ops.extract import (
-    PackedExtract,
-    extract_points,
-    extract_points_packed,
+from kintinuous_tpu_torch.ops.extract import extract_points, extract_points_packed
+from kintinuous_tpu_torch.ops.rgbd import (
+    RGBDFramePyramid,
+    build_rgbd_pyramid,
+    rgbd_icp_odometry,
 )
+from kintinuous_tpu_torch.ops.surface_nets import extract_mesh
 from kintinuous_tpu_torch.ops.tsdf import VolumeState
 from kintinuous_tpu_torch.tracking.odometry import (
     build_map_pyramid,
@@ -72,7 +77,7 @@ class TrackerState(NamedTuple):
     pred_nmap: torch.Tensor  # (3,h,w)
     pred_pose: torch.Tensor  # (4,4) pose the prediction was cast from
     frame: torch.Tensor  # () i32
-    rgbd: Optional[object] = None  # RGB-D pyramid: not in this port yet
+    rgbd: Optional[RGBDFramePyramid] = None  # previous frame's (RGB-D odometry)
     dc: torch.Tensor = None  # () f32 dynamic-cube anchor offset (0 = off)
     prev_delta: torch.Tensor = None  # (4,4) previous odometry delta
     pw: torch.Tensor = None  # () f32 constant-velocity prior weight
@@ -87,7 +92,7 @@ class StepOutputs(NamedTuple):
     icp_count: torch.Tensor  # () f32 inliers at the finest solved level
     icp_residual: torch.Tensor  # () f32
     raycast_hits: torch.Tensor  # () f32 pixels with a predicted surface
-    mesh_patches: Tuple = ()
+    mesh_patches: Tuple = ()  # per axis: MeshResult or None (meshing on)
     raycast_fallback: torch.Tensor = 0.0  # () f32 in [0,1]
 
 
@@ -114,14 +119,11 @@ _AXIS_DIM = {
 
 
 def check_supported(cfg: KintinuousConfig) -> None:
-    """This port covers the fast ICP / ground-truth step with the
-    mirror; anything else raises instead of running something else."""
+    """This port covers the fast step with the mirror (ICP, RGB-D or
+    ground-truth odometry, meshing on or off); anything else raises
+    instead of running something else."""
     if not cfg.fast_mode:
         raise NotImplementedError("the port runs fast_mode=True only")
-    if cfg.rgbd_odometry or cfg.icp_plus_rgbd:
-        raise NotImplementedError("RGB-D odometry is not ported yet")
-    if cfg.incremental_mesh:
-        raise NotImplementedError("incremental meshing is not ported yet")
     if (cfg.volume_resolution // 8) % 2:
         raise NotImplementedError(
             "the mirror refresh needs an even number of blocks per edge")
@@ -168,10 +170,15 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
     iters = tuple(base_iters[1:]) if len(base_iters) > 1 else (10, 5)
     SLAB_B = max(2, -(-(S + OV + 1) // 8))  # block-planes around a band
     B_grid = R // 8
+    use_rgbd = cfg.rgbd_odometry or cfg.icp_plus_rgbd
+    # the fused solve's ICP term against the raycast prediction (-ri);
+    # RGB-D alone (-r) and frame-to-frame RGB-D (-ftf) drop it
+    rgbd_icp = cfg.icp_plus_rgbd and not cfg.frame_to_frame_rgbd
 
-    def extract_axis(vol, axis: int, s: int) -> PackedExtract:
+    def extract_axis(vol, axis: int, s: int):
         """Points of the band leaving along `axis`, from a band-leading
-        slab of the blocked volume."""
+        slab of the blocked volume, and with meshing on the band's mesh
+        (else None)."""
         b0 = 0 if s > 0 else B_grid - SLAB_B
         view = VolumeState(
             tsdf=slab_to_dense(vol.tsdf, axis, b0, SLAB_B, leading=True),
@@ -184,8 +191,15 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
             view, lo, (R, R, S + OV), vsz, cap,
             clamp_edges=True, coord_offset=(0, 0, b0 * 8),
         )
-        perm = list(VIEW_INV[axis]) + [3, 4, 5, 6, 7]
-        return pts._replace(vals=pts.vals[:, perm])
+        inv = list(VIEW_INV[axis])
+        pts = pts._replace(vals=pts.vals[:, inv + [3, 4, 5, 6, 7]])
+        if not cfg.incremental_mesh:
+            return pts, None
+        m = extract_mesh(view, lo, (R, R, S + OV), vsz, cfg.mesh_vertex_capacity,
+                         cfg.mesh_face_capacity, clamp_edges=True,
+                         coord_offset=(0, 0, b0 * 8))
+        # an even permutation of the axes: the winding stays right
+        return pts, m._replace(vertices=m.vertices[:, inv], cells=m.cells[:, inv])
 
     def step(state: TrackerState, depth_raw, rgb_raw, ext_delta):
         dev = depth_raw.device
@@ -193,21 +207,39 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
         with record_function("kt.preprocess"):
             depth_m, rgb, depth_half, color_w = preprocess_frame(cfg, depth_raw, rgb_raw)
             curr_pyr = build_map_pyramid(cam_half, depth_half, levels)
+            curr_rgbd = None
+            if use_rgbd:
+                intensity_half = pp.pyr_down_gauss(pp.rgb_to_intensity(rgb))
+                curr_rgbd = build_rgbd_pyramid(intensity_half, depth_half, levels)
 
         with record_function("kt.odometry"):
             if use_odometry:
-                Tinv = se3.inverse(state.pred_pose)
-                Rm, tm = Tinv[:3, :3], Tinv[:3, 3]
-                pv = torch.einsum("ij,jhw->ihw", Rm, state.pred_vmap) + tm[:, None, None]
-                pn = torch.einsum("ij,jhw->ihw", Rm, state.pred_nmap)
-                pred_pyr = pyramid_from_maps(pv, pn, levels)
+                pred_pyr = None
+                if rgbd_icp or not use_rgbd:
+                    Tinv = se3.inverse(state.pred_pose)
+                    Rm, tm = Tinv[:3, :3], Tinv[:3, 3]
+                    pv = torch.einsum("ij,jhw->ihw", Rm, state.pred_vmap) + tm[:, None, None]
+                    pn = torch.einsum("ij,jhw->ihw", Rm, state.pred_nmap)
+                    pred_pyr = pyramid_from_maps(pv, pn, levels)
                 T0 = torch.where(state.pw > 0, state.prev_delta, eye)
-                delta, icp_count, icp_res = icp_odometry(
-                    cam_half, curr_pyr, pred_pyr, iters,
-                    cfg.icp_dist_thresh, cfg.icp_angle_thresh_deg,
-                    reassoc_every=cfg.icp_reassoc_every,
-                    T_init=T0, T_prior=state.prev_delta, prior_weight=state.pw,
-                )
+                if use_rgbd:
+                    # icp_count is the RGB inlier count here
+                    delta, icp_count, icp_res = rgbd_icp_odometry(
+                        cam_half, curr_pyr, curr_rgbd, state.rgbd, pred_pyr, iters,
+                        icp_weight=cfg.rgbd_icp_weight,
+                        dist_thresh=cfg.icp_dist_thresh,
+                        angle_thresh_deg=cfg.icp_angle_thresh_deg,
+                        jump_reject_m=cfg.rgbd_jump_reject,
+                        reassoc_every=cfg.icp_reassoc_every,
+                        T_init=T0, T_prior=state.prev_delta, prior_weight=state.pw,
+                    )
+                else:
+                    delta, icp_count, icp_res = icp_odometry(
+                        cam_half, curr_pyr, pred_pyr, iters,
+                        cfg.icp_dist_thresh, cfg.icp_angle_thresh_deg,
+                        reassoc_every=cfg.icp_reassoc_every,
+                        T_init=T0, T_prior=state.prev_delta, prior_weight=state.pw,
+                    )
             else:
                 delta = ext_delta
                 icp_count = torch.zeros((), dtype=torch.float32, device=dev)
@@ -216,6 +248,7 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
 
         vol = state.vol
         slices = (None, None, None)
+        meshes = (None, None, None)
         shift = torch.zeros(3, dtype=torch.int32, device=dev)
         shift_any = False
         if not cfg.static_mode:
@@ -230,10 +263,10 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
                 shift_h = [int(s) for s in shift.cpu()]
                 shift_any = any(shift_h)
                 if shift_any:
-                    slices = tuple(
-                        extract_axis(vol, a, s) if s != 0 else None
-                        for a, s in enumerate(shift_h)
-                    )
+                    per_axis = [extract_axis(vol, a, s) if s != 0 else (None, None)
+                                for a, s in enumerate(shift_h)]
+                    slices = tuple(p for p, _ in per_axis)
+                    meshes = tuple(m for _, m in per_axis)
                     t, c = shift_roll_clear(vol.tsdf, vol.cw, shift, S, R)
                     vol = vol._replace(
                         tsdf=t, cw=c,
@@ -260,11 +293,13 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
         new_state = state._replace(
             vol=vol, pose=pose, pred_vmap=rc.vmap, pred_nmap=rc.nmap,
             pred_pose=pose, frame=state.frame + 1, prev_delta=delta,
+            rgbd=curr_rgbd,
         )
         out = StepOutputs(
             pose_local=pose, pose_global=pose_global, shift=shift,
             slices=slices, icp_count=icp_count, icp_residual=icp_res,
             raycast_hits=(rc.depth > 0).sum().to(torch.float32),
+            mesh_patches=meshes if cfg.incremental_mesh else (),
             raycast_fallback=rc.fallback_frac,
         )
         return new_state, out
@@ -273,11 +308,16 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
 
 
 def initial_state(cfg: KintinuousConfig, device) -> TrackerState:
-    """Empty volume and mirror, camera at the volume centre."""
+    """Empty volume and mirror, camera at the volume centre, and for
+    RGB-D odometry the pyramid of an all-zero frame."""
     h, w = cfg.camera.height // 2, cfg.camera.width // 2
     R = cfg.volume_resolution
     pose = torch.eye(4, dtype=torch.float32, device=device)
     pose[:3, 3] = cfg.volume_size / 2.0
+    rgbd = None
+    if cfg.rgbd_odometry or cfg.icp_plus_rgbd:
+        zero = torch.zeros((h, w), dtype=torch.float32, device=device)
+        rgbd = build_rgbd_pyramid(zero, zero, max(2, cfg.pyramid_levels - 1))
     return TrackerState(
         vol=make_blocked_volume(R, device=device),
         pose=pose,
@@ -285,6 +325,7 @@ def initial_state(cfg: KintinuousConfig, device) -> TrackerState:
         pred_nmap=torch.full((3, h, w), torch.nan, device=device),
         pred_pose=pose.clone(),
         frame=torch.zeros((), dtype=torch.int32, device=device),
+        rgbd=rgbd,
         dc=torch.full((), 0.35 * cfg.volume_size if cfg.dynamic_cube else 0.0,
                       dtype=torch.float32, device=device),
         prev_delta=torch.eye(4, dtype=torch.float32, device=device),
@@ -299,7 +340,7 @@ def state_from_numpy(st, device) -> TrackerState:
     """A tracker state given as numpy arrays under the JAX package's
     field names (e.g. its TrackerState after device_get) -> this port's
     state on `device`: tsdf f32, cw u32 as int32 bits, the bf16 mirror
-    through its 16-bit pattern."""
+    through its 16-bit pattern, the RGB-D pyramid level by level."""
     dev = resolve_device(device)
 
     def t(x, dtype=np.float32):
@@ -310,6 +351,9 @@ def state_from_numpy(st, device) -> TrackerState:
     if st.logical is not None:
         bits = np.ascontiguousarray(np.asarray(st.logical)).view(np.int16)
         mirror = torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    rgbd = None
+    if st.rgbd is not None:
+        rgbd = RGBDFramePyramid(*(tuple(t(x) for x in field) for field in st.rgbd))
     return TrackerState(
         vol=BlockedVolume(
             tsdf=t(vol.tsdf),
@@ -320,7 +364,7 @@ def state_from_numpy(st, device) -> TrackerState:
         pose=t(st.pose), pred_vmap=t(st.pred_vmap), pred_nmap=t(st.pred_nmap),
         pred_pose=t(st.pred_pose), frame=t(st.frame, np.int32),
         dc=t(st.dc), prev_delta=t(st.prev_delta), pw=t(st.pw),
-        logical=mirror,
+        logical=mirror, rgbd=rgbd,
     )
 
 
@@ -341,6 +385,8 @@ def state_to_numpy(state: TrackerState) -> TrackerState:
         pw=n(state.pw),
         logical=(None if state.logical is None
                  else n(state.logical.view(torch.int16)).view(np.uint16)),
+        rgbd=(None if state.rgbd is None else RGBDFramePyramid(
+            *(tuple(n(x) for x in field) for field in state.rgbd))),
     )
 
 
@@ -352,7 +398,8 @@ class Tracker:
     pass device="cpu", where every kernel runs its plain version."""
 
     def __init__(self, cfg: KintinuousConfig, device=None,
-                 slice_callback: Optional[Callable[[CloudSlice], None]] = None):
+                 slice_callback: Optional[Callable[[CloudSlice], None]] = None,
+                 mesh_callback: Optional[Callable[[MeshPatch], None]] = None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -361,9 +408,11 @@ class Tracker:
         self.state = initial_state(cfg, self.device)
         self._pending: deque = deque()  # (out, timestamp_us, frame_idx)
         self.slices: List[CloudSlice] = []
+        self.mesh_patches: List[MeshPatch] = []  # band meshes (meshing on)
         self.poses: List[np.ndarray] = []
         self.stamps_us: List[int] = []
         self.slice_callback = slice_callback
+        self.mesh_callback = mesh_callback
         self.pose_callback: Optional[Callable] = None
         self._frame_idx = 0
         self.stats = {"icp_count": [], "icp_residual": [], "raycast_fallback": []}
@@ -450,9 +499,17 @@ class Tracker:
 
             kernels.build()
 
+    def _take_mesh_patch(self, res, timestamp_us: int) -> None:
+        patch = patch_from_result(res, timestamp_us)
+        if len(patch.vertices) == 0 or len(patch.faces) == 0:
+            return
+        self.mesh_patches.append(patch)
+        if self.mesh_callback:
+            self.mesh_callback(patch)
+
     def _consume(self, out: StepOutputs, timestamp_us: int, frame_idx: int) -> None:
-        counts = [s.count if s is not None else torch.zeros_like(out.shift[0])
-                  for s in out.slices]
+        zero = torch.zeros_like(out.shift[0])
+        counts = [s.count if s is not None else zero for s in out.slices]
         scal = torch.cat([
             out.pose_global.reshape(-1),
             torch.stack([out.icp_count, out.icp_residual,
@@ -488,13 +545,16 @@ class Tracker:
             self.slices.append(sl)
             if self.slice_callback:
                 self.slice_callback(sl)
+            if out.mesh_patches:
+                self._take_mesh_patch(out.mesh_patches[axis], timestamp_us)
 
     def flush(self) -> None:
         while self._pending:
             self._consume(*self._pending.popleft())
 
     def finalise(self) -> CloudSlice:
-        """Extract the whole remaining volume as the FINAL slice."""
+        """Extract the whole remaining volume as the FINAL slice, and with
+        meshing on its mesh as the last patch."""
         self.flush()
         cfg = self.cfg
         R = cfg.volume_resolution
@@ -518,6 +578,11 @@ class Tracker:
         self.slices.append(sl)
         if self.slice_callback:
             self.slice_callback(sl)
+        if cfg.incremental_mesh:
+            self._take_mesh_patch(
+                extract_mesh(dense, (0, 0, 0), (R, R, R), cfg.voxel_size,
+                             cfg.mesh_vertex_capacity, cfg.mesh_face_capacity),
+                sl.timestamp_us)
         return sl
 
     @property

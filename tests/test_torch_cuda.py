@@ -192,3 +192,85 @@ def test_batched_step_on_the_card_follows_the_cpu(card):
     # crossing can move, so slice sizes agree to 1 %
     na, nb = ([len(s.points) for s in r.slices] for r in runs)
     assert len(na) == len(nb) and all(abs(a - b) <= 0.01 * max(a, b) for a, b in zip(na, nb))
+
+
+@pytest.mark.parametrize("probe", ["rows", "dma", "full", "dyn"])
+def test_probe_kernels_are_bit_exact(card, probe):
+    """P1-P4 at the probe tool's shapes: bit-equal to their plain
+    versions, each call counted."""
+    from kintinuous_tpu_torch.tools import proto_integrate as P
+
+    x = P.make_inputs(card)
+    n = torch.tensor(P.N_DYN, dtype=torch.int32, device=card)
+    corners = (x.cy, x.cx)
+    kernel, plain, args = {
+        "rows": (P.run_rows, P.run_rows_plain, (x.ids,)),
+        "dma": (P.run_dma, P.run_dma_plain, (x.ids, corners, x.img, x.img2)),
+        "full": (P.run_full, P.run_full_plain, (x.ids, corners, x.img, x.img2)),
+        "dyn": (lambda v, ids: P.run_dyn(n, v, ids),
+                lambda v, ids: P.run_dyn_plain(n, v, ids), (x.ids,)),
+    }[probe]
+    wrapper = getattr(P, f"run_{probe}")
+    before = wrapper.launches
+    got, want = x.tsdf.clone(), x.tsdf.clone()
+    kernel(got, *args)
+    plain(want, *args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int((got != x.tsdf).any(dim=(1, 2)).sum()) == (P.N_DYN if probe == "dyn" else P.N_K)
+
+
+def test_config_b_tracker_on_the_card_follows_the_cpu(card):
+    """Fused ICP+RGB-D (config B) on the card and on the CPU: poses
+    within 1e-4 (as the ICP tracker above), the same RGB inlier counts
+    within 1 %."""
+    cfg = cfg_small().replace(icp_plus_rgbd=True)
+    poses = orbit_trajectory(6, radius=0.06, angle_deg=3.0)
+    frames = [render_frame(Scene.default(), CAM, T) for T in poses]
+    runs = []
+    for dev in (card, "cpu"):
+        tr = Tracker(cfg, device=dev)
+        for i, f in enumerate(frames):
+            tr.process_frame(*f, i * 33333)
+        tr.flush()
+        runs.append(tr)
+    np.testing.assert_allclose(np.array(runs[0].poses), np.array(runs[1].poses), atol=1e-4)
+    ca, cb = (np.array(r.stats["icp_count"][1:]) for r in runs)
+    assert (cb > 0).all() and (np.abs(ca - cb) <= 0.01 * cb).all()
+
+
+def test_meshing_tracker_on_the_card_follows_the_cpu(card):
+    """A ground-truth walk with meshing on the card and on the CPU: the
+    same band patches (cells equal, vertices within 1e-4, face counts
+    within 1 %: K1's tsdf may differ from the plain version's by 1e-7)."""
+    from kintinuous_tpu_torch.io.synth import straight_trajectory
+
+    cfg = cfg_small().replace(mesh=True, mesh_vertex_capacity=100_000,
+                              mesh_face_capacity=200_000)
+    # 1.5 m backwards: the far bands that leave the volume cut the scene
+    poses = straight_trajectory(20, distance=-1.5, axis=2)
+    frames = [render_frame(Scene.default(), CAM, T) for T in poses]
+    runs = []
+    for dev in (card, "cpu"):
+        tr = Tracker(cfg, device=dev)
+        last = None
+        for i, T in enumerate(poses):
+            delta = np.eye(4, dtype=np.float32) if last is None else \
+                (np.linalg.inv(last) @ T).astype(np.float32)
+            tr.process_frame(*frames[i], i * 33333, ext_delta=delta)
+            last = T
+        tr.finalise()
+        runs.append(tr)
+    pa, pb = (r.mesh_patches for r in runs)
+    assert len(pa) == len(pb) >= 3  # two band patches and the FINAL one
+    for a, b in zip(pa, pb):
+        ka = {tuple(c) for c in a.cells}
+        kb = {tuple(c) for c in b.cells}
+        assert len(ka ^ kb) <= 0.01 * len(kb)
+        assert abs(len(a.faces) - len(b.faces)) <= 0.01 * len(b.faces)
+        common = np.array(sorted(ka & kb))
+        va = dict(zip(map(tuple, a.cells), a.vertices))
+        vb = dict(zip(map(tuple, b.cells), b.vertices))
+        d = max(np.abs(va[tuple(c)] - vb[tuple(c)]).max() for c in common)
+        assert d <= 1e-4, d

@@ -61,6 +61,8 @@ RUNTIME_MODULES = [
     "cli.py", "runtime/engine.py", "runtime/pipeline.py", "runtime/checkpoint.py",
     "runtime/stopwatch.py", "backend/native_ops.py", "backend/slice_proc.py",
     "io/klg.py", "io/tum.py", "io/pcd.py", "io/synth.py", "tracking/odometry.py",
+    "ops/rgbd.py", "ops/surface_nets.py", "backend/meshing.py", "io/ply.py",
+    "tools/proto_integrate.py",
 ]
 
 
@@ -124,11 +126,26 @@ def test_tracker_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_options_raise():
+    """What is still unported raises, naming it: the dense path (a
+    tracker without fast_mode), online deformation (-od), live capture
+    (-live), the web viewer (--viz-port) and several devices."""
+    from kintinuous_tpu_torch import cli
+    from kintinuous_tpu_torch.runtime.engine import SlamEngine
     from kintinuous_tpu_torch.tracking.tracker import Tracker
 
-    for kw in ({"fast_mode": False}, {"fast_mode": True, "icp_plus_rgbd": True}):
-        with pytest.raises(NotImplementedError):
-            Tracker(pcfg.tiny_test_config(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="fast_mode"):
+        Tracker(pcfg.tiny_test_config(fast_mode=False), device="cpu")
+    for kw, name in (({"online_deformation": True}, "online_deformation"),
+                     ({"live_source": "tcp://localhost:1"}, "live_source"),
+                     ({"devices": 2}, "devices")):
+        with pytest.raises(NotImplementedError, match=name):
+            SlamEngine(pcfg.tiny_test_config(fast_mode=True, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="--viz-port"):
+        cli.build_config(["-l", "seq.klg", "--fast", "--viz-port", "8000"])
+    # ported now: fused ICP+RGB-D and meshing build a tracker
+    cfg = pcfg.tiny_test_config(fast_mode=True, icp_plus_rgbd=True, mesh=True,
+                                volume_resolution=32)
+    assert Tracker(cfg, device="cpu").state.rgbd is not None
 
 
 def test_kernel_wrappers_take_the_plain_version_on_cpu():
@@ -138,9 +155,11 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
     from kintinuous_tpu_torch.ops.cuda_integrate import band_fusion, free_carve
     from kintinuous_tpu_torch.ops.cuda_raycast import (
         build_mirror, mirror_refresh, tile_raycast)
+    from kintinuous_tpu_torch.tools import proto_integrate as P
     from kintinuous_tpu_torch.tracking.tracker import Tracker
 
-    wrappers = (band_fusion, free_carve, mirror_refresh, build_mirror, tile_raycast)
+    wrappers = (band_fusion, free_carve, mirror_refresh, build_mirror, tile_raycast,
+                P.run_rows, P.run_dma, P.run_full, P.run_dyn)
     before = [w.launches for w in wrappers]
     cam = pcfg.CameraIntrinsics(fx=40.0, fy=40.0, cx=32.0, cy=24.0, width=64, height=48)
     cfg = pcfg.tiny_test_config(camera=cam, fast_mode=True, volume_resolution=32,
@@ -152,6 +171,11 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
     tr.process_frames([(depth, None, 66666), (depth, None, 99999)])
     tr.flush()
     assert build_mirror(tr.state.vol.tsdf, 32).device.type == "cpu"
+    x = P.make_inputs("cpu", n_rows=40, k=8)
+    P.run_rows(x.tsdf, x.ids)
+    P.run_dyn(torch.tensor(3, dtype=torch.int32), x.tsdf, x.ids)
+    P.run_dma(x.tsdf, x.ids, (x.cy, x.cx), x.img, x.img2)
+    P.run_full(x.tsdf, x.ids, (x.cy, x.cx), x.img, x.img2)
     assert [w.launches for w in wrappers] == before
     assert tr.state.vol.tsdf.device.type == "cpu"
     assert make_blocked_volume(32).tsdf.shape == (64, 4, 128)

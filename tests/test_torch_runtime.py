@@ -120,13 +120,32 @@ def test_cli_fast_run_writes_the_poses(seq, tmp_path):  # noqa: F811
     assert bool(dump["blocked"])
 
 
-@pytest.mark.parametrize("flags", [["-od"], ["-m"], [], ["-r"], ["-ri"], ["-ftf"],
-                                   ["--viz-port", "8000"], ["--devices", "2"]],
-                         ids=["od", "m", "no_fast", "r", "ri", "ftf", "viz", "devices"])
-def test_cli_unported_flags_raise(flags):
+@pytest.mark.parametrize("flags,names", [
+    (["-od"], "-od"), (["-m", "-od"], "-od"), ([], "--fast"),
+    (["-live", "tcp://localhost:1"], "-live"), (["--viz-port", "8000"], "--viz-port"),
+    (["--devices", "2"], "--devices"), (["--num-processes", "2"], "--num-processes")],
+    ids=["od", "m_with_od", "no_fast", "live", "viz", "devices", "num_processes"])
+def test_cli_unported_flags_raise(flags, names):
+    """What the port does not run yet raises, naming the flag: -m with -od
+    (the deformed mesh) names -od."""
     fast = [] if flags == [] else ["--fast"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=names):
         cli.build_config(["-l", "seq.klg", *fast, *flags])
+
+
+@pytest.mark.parametrize("flag,field", [("-r", "rgbd_odometry"), ("-ri", "icp_plus_rgbd"),
+                                        ("-ftf", "frame_to_frame_rgbd"), ("-m", "mesh")],
+                         ids=["r", "ri", "ftf", "m"])
+def test_cli_rgbd_and_mesh_flags_build_a_config(flag, field):
+    """-r, -ri, -ftf and -m (without -od) are ported: the flag sets its
+    field, as in the JAX package's CLI, and the engine accepts it."""
+    from kintinuous_tpu import cli as jcli
+
+    argv = ["-l", "seq.klg", "--fast", flag] + (["-ri"] if flag == "-ftf" else [])
+    cfg = cli.build_config(argv)
+    assert getattr(cfg, field) is True and getattr(jcli.build_config(argv), field) is True
+    engine = SlamEngine(cfg.replace(camera=CAM, volume_resolution=32), device="cpu")
+    assert (engine.tracker.state.rgbd is not None) == (flag != "-m")
 
 
 def test_engine_without_a_card_raises_unless_cpu_is_asked(seq, monkeypatch, tmp_path):  # noqa: F811
