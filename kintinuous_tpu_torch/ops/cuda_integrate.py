@@ -73,6 +73,7 @@ def band_fusion(tsdf, cw, img_rows, band_ids, n_band, params,
                           voxel_size, trunc_dist, max_weight)
         return
     K.require_cuda("band_fusion", tsdf, cw, img_rows, band_ids, n_band, params)
+    K.require_cuda("band_fusion", tsdf, cw, align=16)  # float4 / uint4 words
     R = round(tsdf.shape[0] ** (1 / 3)) * BLOCK
     lib = K.library("integrate", _SIGNATURES)
     err = lib.kt_band_fusion(

@@ -76,6 +76,7 @@ def mirror_refresh(tsdf, mirror, pairs, count) -> None:
         mirror_refresh_plain(tsdf, mirror, pairs, count)
         return
     K.require_cuda("mirror_refresh", tsdf, mirror, pairs, count)
+    K.require_cuda("mirror_refresh", tsdf, mirror, align=16)  # 16-byte words
     R = mirror.shape[0]
     lib = K.library("logical", _SIGNATURES_LOGICAL)
     err = lib.kt_mirror_refresh(

@@ -56,6 +56,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
@@ -157,13 +159,15 @@ def host_window_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def require_cuda(fn: str, *tensors: torch.Tensor) -> None:
-    """A kernel wrapper takes CUDA tensors that are contiguous and on
-    one device; anything else raises (there is no silent fallback)."""
+def require_cuda(fn: str, *tensors: torch.Tensor, align: int = 1) -> None:
+    """A kernel wrapper takes CUDA tensors that are contiguous, on one
+    device and (for vector loads) start on an `align`-byte boundary;
+    anything else raises (there is no silent fallback)."""
     dev = tensors[0].device
     for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{fn}: tensors must be contiguous and on {dev}")
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{fn}: tensors must be contiguous, on {dev} and "
+                             f"{align}-byte aligned")
 
 
 P = ctypes.c_void_p

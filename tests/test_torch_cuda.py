@@ -66,19 +66,32 @@ def frame_on_card(card):
     return cfg, st, T, depth_half, tables, lists, params
 
 
-def test_band_fusion_matches_its_plain_version(frame_on_card):
+@pytest.mark.parametrize("case", ["frame", "count0", "every_block"])
+def test_band_fusion_matches_its_plain_version(frame_on_card, case):
     """Same formula, same order of operations, no contraction (-fmad=
-    false): weights equal, tsdf within 1e-5, colour within one step."""
+    false): weights equal, tsdf within 1e-5, colour within one step. On
+    the frame's list; with a count of 0, which leaves the volume
+    bit-equal; and with every block of the volume listed, which walks
+    the kernel's persistent grid many times over."""
     cfg, st, _, _, tables, lists, params = frame_on_card
     assert int(lists.n_band) > 0
+    ids, n = lists.band_ids, lists.n_band
+    if case == "count0":
+        n = torch.zeros_like(n)
+    elif case == "every_block":
+        ids = torch.arange(st.vol.tsdf.shape[0], dtype=torch.int32, device=n.device)
+        n = torch.full_like(n, ids.numel())
     out = []
     for fn in (band_fusion, band_fusion_plain):
         t, c = st.vol.tsdf.clone(), st.vol.cw.clone()
-        fn(t, c, tables.img_rows, lists.band_ids, lists.n_band, params, CAM,
-           cfg.voxel_size, cfg.trunc_dist, float(cfg.max_weight))
+        fn(t, c, tables.img_rows, ids, n, params, CAM, cfg.voxel_size,
+           cfg.trunc_dist, float(cfg.max_weight))
         out.append((t, c))
     torch.cuda.synchronize()
     (tk, ck), (tp, cp) = out
+    if case == "count0":
+        assert torch.equal(tk.view(torch.int32), st.vol.tsdf.view(torch.int32))
+        assert torch.equal(ck, st.vol.cw)
     assert torch.equal((ck >> 24) & 0xFF, (cp >> 24) & 0xFF)
     assert float((tk - tp).abs().max()) <= 1e-5
     for s in (0, 8, 16):
@@ -97,17 +110,24 @@ def test_free_carve_is_bit_exact(frame_on_card):
     assert torch.equal(tk.view(torch.int32), tp.view(torch.int32)) and torch.equal(ck, cp)
 
 
-@pytest.mark.parametrize("case", ["partial", "dirty_all", "count0"])
+@pytest.mark.parametrize("case", ["partial", "dirty_all", "count0", "count1", "odd"])
 def test_mirror_refresh_is_bit_exact(frame_on_card, case):
+    """The frame's dirty pairs; every pair (the grid-stride loop walks
+    the persistent grid many times); counts 0 and 1 of every pair; and
+    an odd count (301) of the pairs in a random order."""
     cfg, st, _, _, _, lists, _ = frame_on_card
     R = cfg.volume_resolution
     B = R // 8
     gen = torch.Generator(device=st.vol.tsdf.device).manual_seed(1)
     garbage = torch.randn((R, R, R), generator=gen, device=st.vol.tsdf.device)
     garbage = garbage.to(torch.bfloat16)
-    pairs, count = dirty_pairs(lists, B, dirty_all=case == "dirty_all")
-    if case == "count0":
-        count = torch.zeros_like(count)
+    pairs, count = dirty_pairs(lists, B, dirty_all=case != "partial")
+    if case in ("count0", "count1"):
+        count = torch.full_like(count, int(case[-1]))
+    elif case == "odd":
+        order = np.random.RandomState(3).permutation(B * B // 2).astype(np.int32)
+        pairs = torch.from_numpy(order).to(pairs.device)
+        count = torch.full_like(count, 301)
     got, want = garbage.clone(), garbage.clone()
     mirror_refresh(st.vol.tsdf, got, pairs, count)
     mirror_refresh_plain(st.vol.tsdf, want, pairs, count)
