@@ -9,12 +9,15 @@ prediction, 16-voxel shifts, ICP odometry):
 
   1. holds each kernel (band fusion, free carve, mirror refresh, mirror
      rebuild, raycast) against its plain PyTorch version on the card, on
-     a volume fused from rendered views of a bare room (band fusion also
-     with a count of 0, the mirror refresh also with counts 0 and 1),
-     and times both with CUDA events from a cold L2 (the kernel also
-     warm, and on the host's clock with its launch work), each row with
-     its share of its bound; the rebuilt mirror must equal the tracker's
-     live one bit for bit;
+     a volume fused from rendered views of a bare room (band fusion and
+     the free carve also with a count of 0, the carve and the mirror
+     refresh with a count of 1, the raycast at each compiled (window,
+     newton) pair), and times both with CUDA events from a cold L2 (the
+     kernel also warm, and on the host's clock with its launch work),
+     each row with its share of its bound; beside them the floor of a
+     launch (the carve at count 0) and the raycast wrapper's host time
+     by part; the rebuilt mirror must equal the tracker's live one bit
+     for bit;
   2. tracks a 96-frame orbit with ICP odometry: ATE < 1 cm and more than
      2000 ICP inliers on each of the last 10 frames;
   3. replays a 40-frame ground-truth walk 1.5 m backwards that shifts
@@ -163,6 +166,54 @@ def time_ms(fn, reps: int = 10, mode: str = "cold") -> float:
     return statistics.median(times)
 
 
+def raycast_host_splits(call, mirror, t_warm, params, cam, vsz, trunc, window,
+                        newton) -> dict:
+    """Host us a call of K4's wrapper and of its parts take, each the
+    median of 5 runs of 50 calls in a row (no synchronisation inside a
+    run, so the card's time is not in them): the whole call; the C call
+    alone (ctypes and the launch); the output's allocation; its five
+    views; the stream query; the argument checks; the f32 constants;
+    and five (h,w) allocations and the stream object's query, as the
+    wrapper made them before."""
+    import torch
+
+    from kintinuous_tpu_torch.ops import kernels as K
+    from kintinuous_tpu_torch.ops.cuda_raycast import (
+        _SIGNATURES_RAYCAST, _raycast_constants)
+
+    h, w = t_warm.shape
+    dev = t_warm.device
+    out = torch.empty((5, h, w), dtype=torch.float32, device=dev)
+    lib = K.library("raycast", _SIGNATURES_RAYCAST)
+    args = (mirror.data_ptr(), t_warm.data_ptr(), params.data_ptr(),
+            *(x.data_ptr() for x in out), h, w, mirror.shape[0],
+            *_raycast_constants(cam, vsz, trunc), window, newton, K.stream_of(t_warm))
+    parts = {
+        "call": call,
+        "c_call": lambda: lib.kt_tile_raycast(*args),
+        "alloc": lambda: torch.empty((5, h, w), dtype=torch.float32, device=dev),
+        "views": lambda: out.unbind(0),
+        "stream": lambda: K.stream_of(t_warm),
+        "checks": lambda: K.require_cuda("tile_raycast", mirror, t_warm, params),
+        "constants": lambda: _raycast_constants(cam, vsz, trunc),
+        "alloc_five": lambda: [torch.empty((h, w), dtype=torch.float32, device=dev)
+                               for _ in range(5)],
+        "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+    }
+    res = {}
+    for name, fn in parts.items():
+        runs = []
+        for _ in range(6):  # the first run warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            runs.append((time.perf_counter() - t0) / 50 * 1e6)
+        res[name] = statistics.median(runs[1:])
+    torch.cuda.synchronize()
+    return res
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple:
     t_mem = n_bytes / MEM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
@@ -192,8 +243,8 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
         free_carve_plain, integrate_plan,
     )
     from kintinuous_tpu_torch.ops.cuda_raycast import (
-        _f32, build_mirror, build_mirror_plain, mirror_refresh, mirror_refresh_plain,
-        ray_setup, raycast_params, tile_raycast, tile_raycast_plain,
+        RAYCAST_PAIRS, _f32, build_mirror, build_mirror_plain, mirror_refresh,
+        mirror_refresh_plain, ray_setup, raycast_params, tile_raycast, tile_raycast_plain,
     )
     from kintinuous_tpu_torch.tracking.tracker import Tracker, preprocess_frame
 
@@ -266,19 +317,35 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     )
     del tk, ck, tp, cp
 
-    # K2 free carve: bit-exact over the whole volume
-    tk, ck = st.vol.tsdf.clone(), st.vol.cw.clone()
-    tp, cp = st.vol.tsdf.clone(), st.vol.cw.clone()
-    free_carve(tk, ck, lists.free_ids, lists.n_free, mw)
-    free_carve_plain(tp, cp, lists.free_ids, lists.n_free, mw)
-    exact = torch.equal(tk.view(torch.int32), tp.view(torch.int32)) and torch.equal(ck, cp)
-    assert exact, "free carve differs from its plain version"
+    # K2 free carve: bit-exact over the whole volume, with counts 0 (the
+    # volume unchanged) and 1, then the frame's count
+    for n in (zero, torch.ones_like(zero), lists.n_free):
+        tk, ck = st.vol.tsdf.clone(), st.vol.cw.clone()
+        tp, cp = st.vol.tsdf.clone(), st.vol.cw.clone()
+        free_carve(tk, ck, lists.free_ids, n, mw)
+        free_carve_plain(tp, cp, lists.free_ids, n, mw)
+        exact = torch.equal(tk.view(torch.int32), tp.view(torch.int32)) and \
+            torch.equal(ck, cp)
+        assert exact, f"free carve with a count of {int(n)} differs from its plain version"
+        if n is zero:
+            assert torch.equal(tk.view(torch.int32), st.vol.tsdf.view(torch.int32)) and \
+                torch.equal(ck, st.vol.cw), "free carve with a count of 0 changed the volume"
+    # the floor of a launch on this card: K2 at count 0, an empty
+    # persistent grid that reads the count and leaves
+    floor = {"launch_floor_ms": time_ms(lambda: free_carve(tk, ck, lists.free_ids, zero, mw)),
+             "launch_floor_ms_warm_l2": time_ms(
+                 lambda: free_carve(tk, ck, lists.free_ids, zero, mw), mode="warm"),
+             "launch_floor_host_ms": time_ms(
+                 lambda: free_carve(tk, ck, lists.free_ids, zero, mw), mode="host")}
+    print(json.dumps({"name": "launch_floor", "kernel": "free_carve, count 0",
+                      "card": card, **floor}), flush=True)
     report(
         "free_carve", "kintinuous_tpu_torch/csrc/integrate.cu",
         "kintinuous_tpu/ops/pallas_integrate.py:247", 0.0,
         lambda: free_carve(tk, ck, lists.free_ids, lists.n_free, mw),
         lambda: free_carve_plain(tp, cp, lists.free_ids, lists.n_free, mw),
         nf * 512 * 16 + nf * 4, nf * 512 * OPS_FREE_VOXEL, blocks=nf,
+        launch_floor_ms=floor["launch_floor_ms"],
     )
     del tp, cp
 
@@ -354,24 +421,35 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     )
     del m5
 
-    # K4 raycast of the tracker's mirror around the measured depth
+    # K4 raycast of the tracker's mirror around the measured depth, at each
+    # compiled (window, newton) pair, the tracker's among them
     window, newton = 5, cfg.raycast_newton_iters
     dn, _, t_warm = ray_setup(cam_half, T, depth_half)
     rp = raycast_params(T)
 
-    def k4(fn):
-        return fn(st.logical, t_warm, rp, cam_half, vsz, trunc, window, newton)
+    def k4(fn, pair=(window, newton)):
+        return fn(st.logical, t_warm, rp, cam_half, vsz, trunc, *pair)
 
-    ok_k, ok_p = k4(tile_raycast), k4(tile_raycast_plain)
-    fk, fp = ok_k[1] > 0.5, ok_p[1] > 0.5
-    both = fk & fp
-    assert int(fk.sum()) > 0.5 * int((t_warm > 0).sum()), "raycast found few hits"
-    found_mis = float((fk != fp).float().mean())
-    d_err = float((ok_k[0] - ok_p[0])[both].abs().max())
-    g_err = max(float((a - b)[both].abs().max()) for a, b in zip(ok_k[2:], ok_p[2:]))
-    # tolerances: 0.1 % of pixels may flip found; where both hit, depth
-    # within 1 mm (a tenth of a voxel) and gradient within 1e-3
-    assert found_mis <= 1e-3 and d_err <= 1e-3 and g_err <= 1e-3, (found_mis, d_err, g_err)
+    pairs_err = {}
+    for pair in RAYCAST_PAIRS:
+        ok_k, ok_p = k4(tile_raycast, pair), k4(tile_raycast_plain, pair)
+        fk, fp = ok_k[1] > 0.5, ok_p[1] > 0.5
+        both = fk & fp
+        assert int(fk.sum()) > 0.5 * int((t_warm > 0).sum()), "raycast found few hits"
+        pairs_err[f"{pair[0]},{pair[1]}"] = dict(
+            found_mismatch=float((fk != fp).float().mean()),
+            depth_err=float((ok_k[0] - ok_p[0])[both].abs().max()),
+            grad_err=max(float((a - b)[both].abs().max())
+                         for a, b in zip(ok_k[2:], ok_p[2:])),
+            hits=int(fk.sum()))
+        # tolerances: 0.1 % of pixels may flip found (none at the tracker's
+        # pair); where both hit, depth within 1 mm (a tenth of a voxel) and
+        # gradient within 1e-3
+        found_mis, d_err, g_err, _ = pairs_err[f"{pair[0]},{pair[1]}"].values()
+        assert found_mis <= 1e-3 and d_err <= 1e-3 and g_err <= 1e-3, \
+            (pair, found_mis, d_err, g_err)
+    found_mis, d_err, g_err, hits = pairs_err[f"{window},{newton}"].values()
+    assert found_mis == 0.0, f"{found_mis} of the pixels flip their hit"
     # least bytes: each pixel's t_warm in and 5 outputs out, plus every
     # distinct mirror voxel that the window's taps read (Newton taps not
     # counted, so this stays a lower bound)
@@ -394,7 +472,11 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
         lambda: k4(tile_raycast), lambda: k4(tile_raycast_plain),
         n_px * 24 + n_vox * 2, n_px * (OPS_RAY_PIXEL + OPS_RAY_TAP * (window + newton)),
         found_mismatch=found_mis, depth_err=d_err, grad_err=g_err,
-        hits=int(fk.sum()), pixels=n_px,
+        hits=hits, pixels=n_px, pairs=pairs_err,
+        launch_floor_ms=floor["launch_floor_ms"],
+        host_splits_us=raycast_host_splits(
+            lambda: k4(tile_raycast), st.logical, t_warm, rp, cam_half, vsz, trunc,
+            window, newton),
     )
     return rows
 

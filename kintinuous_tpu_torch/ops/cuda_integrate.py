@@ -106,6 +106,7 @@ def free_carve(tsdf, cw, free_ids, n_free, max_weight: float) -> None:
         free_carve_plain(tsdf, cw, free_ids, n_free, max_weight)
         return
     K.require_cuda("free_carve", tsdf, cw, free_ids, n_free)
+    K.require_cuda("free_carve", tsdf, cw, align=16)  # float4 / uint4 words
     lib = K.library("integrate", _SIGNATURES)
     err = lib.kt_free_carve(
         free_ids.data_ptr(), n_free.data_ptr(), tsdf.data_ptr(), cw.data_ptr(),

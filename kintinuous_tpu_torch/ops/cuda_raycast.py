@@ -224,31 +224,46 @@ def tile_raycast_plain(mirror, t_warm, params, cam: CameraIntrinsics,
     return t_out, found.to(torch.float32), gx, gy, gz
 
 
+# the (window, newton) pairs csrc/raycast.cu compiles its kernel for
+RAYCAST_PAIRS = ((5, 0), (5, 1), (5, 2))
+
+
+def _raycast_constants(cam: CameraIntrinsics, voxel_size: float,
+                       trunc_dist: float) -> tuple:
+    """The kernel's f32 arguments after R: inv_vsz, fx, fy, cx, cy, step,
+    trunc."""
+    return (_f32(1.0 / voxel_size), cam.fx, cam.fy, cam.cx, cam.cy,
+            _f32(0.8 * trunc_dist), trunc_dist)
+
+
 def tile_raycast(mirror, t_warm, params, cam: CameraIntrinsics,
                  voxel_size: float, trunc_dist: float, window: int = 5,
                  newton: int = 1):
     """Per-pixel raycast of the bf16 mirror around warm-start ray
     lengths t_warm (h,w; 0 = none), for the pose whose origin and
     rotation are `params` (replaces pallas_raycast._raycast_kernel).
-    Returns (t_hit, found, gx, gy, gz)."""
+    Returns (t_hit, found, gx, gy, gz), on the card five views of one
+    (5,h,w) tensor. The card takes the (window, newton) pairs of
+    RAYCAST_PAIRS and raises ValueError on any other."""
     if mirror.device.type == "cpu":
         return tile_raycast_plain(mirror, t_warm, params, cam, voxel_size,
                                   trunc_dist, window, newton)
+    if (window, newton) not in RAYCAST_PAIRS:
+        raise ValueError(f"tile_raycast: (window, newton) = ({window}, {newton}) is "
+                         f"not compiled; the card takes {RAYCAST_PAIRS}")
     K.require_cuda("tile_raycast", mirror, t_warm, params)
     h, w = t_warm.shape
-    outs = [torch.empty((h, w), dtype=torch.float32, device=t_warm.device)
-            for _ in range(5)]
-    lib = K.library("raycast", _SIGNATURES_RAYCAST)
-    err = lib.kt_tile_raycast(
-        mirror.data_ptr(), t_warm.data_ptr(), params.data_ptr(),
-        *[x.data_ptr() for x in outs], h, w, mirror.shape[0],
-        _f32(1.0 / voxel_size), cam.fx, cam.fy, cam.cx, cam.cy,
-        _f32(0.8 * trunc_dist), trunc_dist, window, newton,
-        K.stream_of(t_warm),
+    out = torch.empty((5, h, w), dtype=torch.float32, device=t_warm.device)
+    base, plane = out.data_ptr(), h * w * 4
+    err = K.library("raycast", _SIGNATURES_RAYCAST).kt_tile_raycast(
+        mirror.data_ptr(), t_warm.data_ptr(), params.data_ptr(), base,
+        base + plane, base + 2 * plane, base + 3 * plane, base + 4 * plane, h, w,
+        mirror.shape[0], *_raycast_constants(cam, voxel_size, trunc_dist),
+        window, newton, K.stream_of(t_warm),
     )
     K.check(err, "kt_tile_raycast")
     tile_raycast.launches += 1
-    return tuple(outs)
+    return out.unbind(0)
 
 
 tile_raycast.launches = 0

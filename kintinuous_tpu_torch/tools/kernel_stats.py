@@ -37,7 +37,10 @@ _SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 def short_name(mangled: str) -> str:
     """The last component of an Itanium-mangled name
-    (`_ZN12_GLOBAL__N_118band_fusion_kernelE...` -> band_fusion_kernel)."""
+    (`_ZN12_GLOBAL__N_118band_fusion_kernelE...` -> band_fusion_kernel),
+    with its integer template arguments, so that each instantiation keeps
+    its own row (`...tile_raycast_kernelILi5ELi1EEE...` ->
+    tile_raycast_kernel<5,1>)."""
     if not mangled.startswith("_Z"):
         return mangled
     i = 3 if mangled.startswith("_ZN") else 2
@@ -50,6 +53,9 @@ def short_name(mangled: str) -> str:
         name, i = mangled[j:j + n], j + n
         if not mangled.startswith("_ZN"):
             break
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    if args:
+        name += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
     return name
 
 

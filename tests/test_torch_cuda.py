@@ -98,16 +98,40 @@ def test_band_fusion_matches_its_plain_version(frame_on_card, case):
         assert int((((ck >> s) & 0xFF) - ((cp >> s) & 0xFF)).abs().max()) <= 1
 
 
-def test_free_carve_is_bit_exact(frame_on_card):
+@pytest.mark.parametrize("case", ["frame", "count0", "count1", "odd", "full_cap"])
+def test_free_carve_is_bit_exact(frame_on_card, case):
+    """The frame's list; counts 0 (the volume bit-equal) and 1 of it; an
+    odd count (301) of distinct blocks in a random order; and every slot
+    of the 12,288-slot cap filled with distinct blocks, which walks the
+    persistent grid many times over."""
     cfg, st, _, _, _, lists, _ = frame_on_card
     assert int(lists.n_free) > 0
+    ids, n = lists.free_ids, lists.n_free
+    if case in ("count0", "count1"):
+        n = torch.full_like(n, int(case[-1]))
+    elif case in ("odd", "full_cap"):
+        order = np.random.RandomState(4).permutation(st.vol.tsdf.shape[0])
+        ids = torch.from_numpy(order[:ids.numel()].astype(np.int32)).to(ids.device)
+        n = torch.full_like(n, 301 if case == "odd" else ids.numel())
     out = []
     for fn in (free_carve, free_carve_plain):
         t, c = st.vol.tsdf.clone(), st.vol.cw.clone()
-        fn(t, c, lists.free_ids, lists.n_free, float(cfg.max_weight))
+        fn(t, c, ids, n, float(cfg.max_weight))
         out.append((t, c))
+    torch.cuda.synchronize()
     (tk, ck), (tp, cp) = out
     assert torch.equal(tk.view(torch.int32), tp.view(torch.int32)) and torch.equal(ck, cp)
+    if case == "count0":
+        assert torch.equal(tk.view(torch.int32), st.vol.tsdf.view(torch.int32))
+        assert torch.equal(ck, st.vol.cw)
+
+
+def test_free_carve_refuses_a_volume_off_16_byte_words(frame_on_card):
+    cfg, st, _, _, _, lists, _ = frame_on_card
+    shifted = torch.empty(st.vol.tsdf.numel() + 1, device=st.vol.tsdf.device)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        free_carve(shifted.view(st.vol.tsdf.shape), st.vol.cw, lists.free_ids,
+                   lists.n_free, float(cfg.max_weight))
 
 
 @pytest.mark.parametrize("case", ["partial", "dirty_all", "count0", "count1", "odd"])
@@ -157,21 +181,50 @@ def test_build_mirror_is_bit_exact(frame_on_card, R):
         assert torch.equal(got.view(torch.int16), st.logical.view(torch.int16))
 
 
-def test_tile_raycast_matches_its_plain_version(frame_on_card):
-    """Where both hit, depth within 1e-3 m and gradient within 1e-3;
-    at most 0.1 % of pixels may disagree on a hit."""
+@pytest.mark.parametrize("case", ["5,1", "5,0", "5,2", "all_miss", "ragged"])
+def test_tile_raycast_matches_its_plain_version(frame_on_card, case):
+    """At each compiled (window, newton) pair: where both hit, depth
+    within 1e-3 m and gradient within 1e-3; at most 0.1 % of pixels may
+    disagree on a hit. With no warm start (t_warm all 0) nothing is
+    found and t is 0 everywhere; a 117x157 crop masks the edge of the
+    kernel's 32x4 tiles."""
     cfg, st, T, depth_half, _, _, _ = frame_on_card
     cam_half = CAM.at_level(1)
     _, _, t_warm = ray_setup(cam_half, T, depth_half)
+    pair = (5, cfg.raycast_newton_iters)
+    if case == "all_miss":
+        t_warm = torch.zeros_like(t_warm)
+    elif case == "ragged":
+        t_warm = t_warm[:117, :157].contiguous()
+    elif "," in case:
+        pair = tuple(int(x) for x in case.split(","))
     args = (st.logical, t_warm, raycast_params(T), cam_half, cfg.voxel_size,
-            cfg.trunc_dist, 5, cfg.raycast_newton_iters)
+            cfg.trunc_dist, *pair)
     a, b = tile_raycast(*args), tile_raycast_plain(*args)
+    assert all(x.shape == t_warm.shape for x in a)
     fa, fb = a[1] > 0.5, b[1] > 0.5
-    assert int(fa.sum()) > 0.5 * int((t_warm > 0).sum())
+    if case == "all_miss":
+        assert not fa.any() and not fb.any()
+        assert not a[0].any() and not b[0].any()
+    else:
+        assert int(fa.sum()) > 0.5 * int((t_warm > 0).sum())
     assert float((fa != fb).float().mean()) <= 1e-3
-    both = fa & fb
+    # where both hit; with no hit, the gradients of the Newton tap at t = 0
+    where = torch.ones_like(fa) if case == "all_miss" else fa & fb
     for x, y in zip(a[0:1] + a[2:], b[0:1] + b[2:]):
-        assert float((x - y)[both].abs().max()) <= 1e-3
+        assert float((x - y)[where].abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("pair", [(5, 3), (3, 1)])
+def test_tile_raycast_refuses_a_pair_it_was_not_compiled_for(frame_on_card, pair):
+    cfg, st, T, depth_half, _, _, _ = frame_on_card
+    cam_half = CAM.at_level(1)
+    _, _, t_warm = ray_setup(cam_half, T, depth_half)
+    before = tile_raycast.launches
+    with pytest.raises(ValueError, match="not compiled"):
+        tile_raycast(st.logical, t_warm, raycast_params(T), cam_half, cfg.voxel_size,
+                     cfg.trunc_dist, *pair)
+    assert tile_raycast.launches == before
 
 
 def test_tracker_on_the_card_follows_the_cpu(card):

@@ -115,3 +115,54 @@ def test_tile_raycast_finds_a_plane():
         assert bool((found > 0.5).all())
         np.testing.assert_allclose((t_hit / lam).numpy(), 0.71, atol=2e-3)
         assert float(gz.max()) < 0 and float(gx.abs().max()) < 1e-6
+
+
+def _plane_mirror():
+    """test_tile_raycast_finds_a_plane's scene: (mirror, t_warm, params,
+    cam, voxel size, trunc), the warm starts 4 cm off the plane."""
+    from kintinuous_tpu_torch.config import CameraIntrinsics
+
+    R, vsz, trunc = 64, 0.025, 0.06
+    z = (torch.arange(R, dtype=torch.float32) + 0.5) * vsz
+    mirror = torch.clamp((1.01 - z) / trunc, -1, 1)[:, None, None].expand(R, R, R)
+    cam = CameraIntrinsics(fx=40.0, fy=40.0, cx=16.0, cy=12.0, width=32, height=24)
+    T = torch.eye(4)
+    T[:3, 3] = torch.tensor([0.8, 0.8, 0.3])
+    u = torch.arange(32.0)[None, :]
+    v = torch.arange(24.0)[:, None]
+    lam = torch.sqrt(((u - 16) / 40) ** 2 + ((v - 12) / 40) ** 2 + 1)
+    t_warm = torch.where(u < 28, 0.74 * lam, 0.0).contiguous()  # 4 columns unwarmed
+    return (mirror.to(torch.bfloat16).contiguous(), t_warm, raycast_params(T), cam,
+            vsz, trunc)
+
+
+@pytest.mark.parametrize("pair", [(5, 1), (5, 0), (5, 2), (3, 1)])
+def test_tile_raycast_on_the_cpu_is_its_plain_version(pair):
+    """On CPU tensors the wrapper returns its plain version's five (h,w)
+    f32 maps unchanged, for any (window, newton) pair: only the card's
+    kernel is limited to the compiled pairs."""
+    from kintinuous_tpu_torch.ops.cuda_raycast import tile_raycast_plain
+
+    args = (*_plane_mirror(), *pair)
+    got, want = tile_raycast(*args), tile_raycast_plain(*args)
+    assert len(got) == 5
+    for a, b in zip(got, want):
+        assert a.shape == (24, 32) and a.dtype == torch.float32
+        assert torch.equal(a, b)
+    assert bool((got[1][:, :28] > 0.5).all()) and not bool(got[1][:, 28:].any())
+
+
+def test_the_compiled_raycast_pairs_are_the_sources_and_the_trackers():
+    """RAYCAST_PAIRS names exactly the pairs csrc/raycast.cu instantiates,
+    and the tracker's (5, raycast_newton_iters) is one of them."""
+    import re
+
+    from kintinuous_tpu_torch.config import KintinuousConfig
+    from kintinuous_tpu_torch.ops import kernels
+    from kintinuous_tpu_torch.ops.cuda_raycast import RAYCAST_PAIRS
+
+    src = (kernels.CSRC / "raycast.cu").read_text()
+    compiled = {(int(a), int(b)) for a, b in
+                re.findall(r"run = &launch<(\d+), (\d+)>", src)}
+    assert compiled == set(RAYCAST_PAIRS)
+    assert (5, KintinuousConfig().raycast_newton_iters) in compiled
