@@ -11,8 +11,9 @@ prediction, 16-voxel shifts, ICP odometry):
      rebuild, raycast) against its plain PyTorch version on the card, on
      a volume fused from rendered views of a bare room (band fusion and
      the free carve also with a count of 0, the carve and the mirror
-     refresh with a count of 1, the raycast at each compiled (window,
-     newton) pair), and times both with CUDA events from a cold L2 (the
+     refresh with a count of 1, the raycast at each unrolled (window,
+     newton) pair and, through its run-time loops, at (5,3), (3,1) and
+     (7,2)), and times both with CUDA events from a cold L2 (the
      kernel also warm, and on the host's clock with its launch work),
      each row with its share of its bound; beside them the floor of a
      launch (the carve at count 0) and the raycast wrapper's host time
@@ -39,12 +40,19 @@ prediction, 16-voxel shifts, ICP odometry):
   8. runs the probe tool (kintinuous_tpu_torch.tools.proto_integrate,
      the port of tools/proto_integrate_pallas.py) at its shapes, then
      holds each probe kernel (P1-P4) against its plain version bit for
-     bit and times it beside its bound, its plain version and, for P1
+     bit (P1 and P3 also over 0, 1 and 301 rows, P4 with n = 0, k and
+     k + 5) and times it beside its bound, its plain version and, for P1
      and P4, PyTorch's index_add_;
+  9. at an odd block count, config A with a 504^3 volume (63 blocks an
+     edge), where the step keeps no mirror and the raycast rebuilds it
+     (K5) every frame: phase 2's orbit for 24 frames (ATE < 1 cm, ICP
+     inliers > 2000) and phase 3's walk (ATE < 1 mm, slices hold
+     points);
 
 and checks that each run of phases 2-4, 6 and 7 launched K1-K4, phase 5
-the rebuild and phase 8 the four probes, with the counts set to 0 before
-each path. `--trace FRAMES`
+the rebuild, phase 8 the four probes and phase 9 K1, K2, K4 and K5 once
+a frame and K3 never, with the counts set to 0 before each path.
+`--trace FRAMES`
 then profiles that many further orbit frames (where a frame's time
 goes: host ms untraced and traced, device busy ms and idle share, host
 ms per step stage, kernel launches, the kernels with the most device
@@ -85,6 +93,8 @@ OPS_RAY_TAP = 70
 
 ORBIT_FRAMES = 96
 WALK_FRAMES = 40
+ODD_RESOLUTION = 504  # phase 9: 63 blocks an edge
+ODD_ORBIT_FRAMES = 24
 ENGINE_FRAMES = 48
 # phase 4's engine runs: (path, batched), batched and per frame as A B B A
 ENGINE_RUNS = (("engine", True), ("engine_per_frame", False),
@@ -95,6 +105,9 @@ STAGES = ("kt.preprocess", "kt.odometry", "kt.shift", "kt.integrate", "kt.raycas
 
 
 ORBIT_RGBD_FRAMES = 96  # phase 6, config B
+# (window, newton) pairs outside ops/cuda_raycast.RAYCAST_PAIRS: the
+# raycast kernel's run-time loops (phase 1)
+RUNTIME_PAIRS = ((5, 3), (3, 1), (7, 2))
 
 
 def probe_bytes(x, n_dyn: int) -> dict:
@@ -422,7 +435,8 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     del m5
 
     # K4 raycast of the tracker's mirror around the measured depth, at each
-    # compiled (window, newton) pair, the tracker's among them
+    # unrolled (window, newton) pair, the tracker's among them, and at
+    # pairs that run the kernel's run-time loops
     window, newton = 5, cfg.raycast_newton_iters
     dn, _, t_warm = ray_setup(cam_half, T, depth_half)
     rp = raycast_params(T)
@@ -431,7 +445,7 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
         return fn(st.logical, t_warm, rp, cam_half, vsz, trunc, *pair)
 
     pairs_err = {}
-    for pair in RAYCAST_PAIRS:
+    for pair in RAYCAST_PAIRS + RUNTIME_PAIRS:
         ok_k, ok_p = k4(tile_raycast, pair), k4(tile_raycast_plain, pair)
         fk, fp = ok_k[1] > 0.5, ok_p[1] > 0.5
         both = fk & fp
@@ -474,6 +488,8 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
         found_mismatch=found_mis, depth_err=d_err, grad_err=g_err,
         hits=hits, pixels=n_px, pairs=pairs_err,
         launch_floor_ms=floor["launch_floor_ms"],
+        ms_5_3=time_ms(lambda: k4(tile_raycast, (5, 3))),
+        ms_warm_l2_5_3=time_ms(lambda: k4(tile_raycast, (5, 3)), mode="warm"),
         host_splits_us=raycast_host_splits(
             lambda: k4(tile_raycast), st.logical, t_warm, rp, cam_half, vsz, trunc,
             window, newton),
@@ -481,7 +497,8 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     return rows
 
 
-def track_orbit(cfg, dev, frames, poses, card: str) -> dict:
+def track_orbit(cfg, dev, frames, poses, card: str, n_frames: int = ORBIT_FRAMES,
+                phase: str = "orbit") -> dict:
     """Phase 2: the tracked orbit, ICP odometry on every frame after the
     first, ping-ponged over the rendered views."""
     import torch
@@ -492,7 +509,7 @@ def track_orbit(cfg, dev, frames, poses, card: str) -> dict:
     tr = Tracker(cfg, device=dev)
     gt = []
     t0 = time.perf_counter()
-    for i in range(ORBIT_FRAMES):
+    for i in range(n_frames):
         k = pingpong(i, len(frames))
         tr.process_frame(*frames[k], i * 33333)
         gt.append(poses[k])
@@ -504,17 +521,19 @@ def track_orbit(cfg, dev, frames, poses, card: str) -> dict:
     ate, n = absolute_trajectory_error(stamps, np.array(gt),
                                        np.array(tr.stamps_us) / 1e6, np.array(tr.poses))
     icp_min = min(tr.stats["icp_count"][-10:])
-    res = dict(phase="orbit", card=card, frames=ORBIT_FRAMES, seconds=elapsed,
-               fps=ORBIT_FRAMES / elapsed, ate_m=ate, matched=n,
+    res = dict(phase=phase, card=card, frames=n_frames, seconds=elapsed,
+               fps=n_frames / elapsed, ate_m=ate, matched=n,
                icp_count_min_last10=icp_min,
-               raycast_fallback_mean=float(np.mean(tr.stats["raycast_fallback"])))
+               raycast_fallback_mean=float(np.mean(tr.stats["raycast_fallback"])),
+               volume_resolution=cfg.volume_resolution,
+               keeps_mirror=tr.state.logical is not None)
     print(json.dumps(res), flush=True)
-    assert n == ORBIT_FRAMES and icp_min > 2000, "ICP lost tracking"
-    assert ate < 0.01, f"orbit ATE {ate * 100:.2f} cm"
+    assert n == n_frames and icp_min > 2000, "ICP lost tracking"
+    assert ate < 0.01, f"{phase} ATE {ate * 100:.2f} cm"
     return res
 
 
-def walk_gt(cfg, dev, card: str) -> tuple:
+def walk_gt(cfg, dev, card: str, phase: str = "walk") -> tuple:
     """Phase 3: a ground-truth walk of 1.5 m backwards along the optical
     axis. The volume shifts, and the far slabs that leave it cut through
     the objects and the room's back wall, so the slices hold points; the
@@ -541,12 +560,14 @@ def walk_gt(cfg, dev, card: str) -> tuple:
                                        np.array(tr.stamps_us) / 1e6, np.array(tr.poses))
     n_shifts = sum(1 for s in tr.shift_log if np.any(s != 0))
     points = [len(s.points) for s in tr.slices]
-    res = dict(phase="walk", card=card, frames=WALK_FRAMES, seconds=elapsed,
+    res = dict(phase=phase, card=card, frames=WALK_FRAMES, seconds=elapsed,
                fps=WALK_FRAMES / elapsed, ate_m=ate, matched=n,
-               shift_frames=n_shifts, slice_points=points)
+               shift_frames=n_shifts, slice_points=points,
+               volume_resolution=cfg.volume_resolution,
+               keeps_mirror=tr.state.logical is not None)
     print(json.dumps(res), flush=True)
     assert n_shifts >= 1 and points and min(points) > 0, "no shift or empty slice"
-    assert n == WALK_FRAMES and ate < 1e-3, f"walk ATE {ate * 1e3:.3f} mm"
+    assert n == WALK_FRAMES and ate < 1e-3, f"{phase} ATE {ate * 1e3:.3f} mm"
     return poses, frames
 
 
@@ -799,8 +820,29 @@ def check_probes(dev, card: str) -> dict:
 
     x = P.make_inputs(dev)
     corners = (x.cy, x.cx)
+    k = x.ids.shape[0]
+    # the redesigned walks at their edges: 0 and 1 rows, 301 (not a
+    # multiple of a block's 8 warps), and P4's count clamped to [0, k]
+    edges = {}
+    for m in (0, 1, 301):
+        part = (x.ids[:m], (x.cy[:m], x.cx[:m]), x.img, x.img2)
+        edges[f"probe_rows,{m}"] = (P.run_rows, P.run_rows_plain, part[:1])
+        edges[f"probe_full,{m}"] = (P.run_full, P.run_full_plain, part)
+    for m in (0, k, k + 5, -3):
+        n_m = torch.tensor(m, dtype=torch.int32, device=dev)
+        edges[f"probe_dyn,n={m}"] = (
+            lambda vol, ids, n_m=n_m: P.run_dyn(n_m, vol, ids),
+            lambda vol, ids, n_m=n_m: P.run_dyn_plain(n_m, vol, ids), (x.ids,))
+    for case, (kernel, plain, args) in edges.items():
+        got, want = x.tsdf.clone(), x.tsdf.clone()
+        kernel(got, *args)
+        plain(want, *args)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            f"{case} differs from its plain version"
+    print(json.dumps({"phase": "probe_edges", "card": card, "bit_exact": list(edges)}),
+          flush=True)
     n = torch.tensor(P.N_DYN, dtype=torch.int32, device=dev)
-    ones = torch.ones((x.ids.shape[0], 4, 128), dtype=torch.float32, device=dev)
+    ones = torch.ones((k, 4, 128), dtype=torch.float32, device=dev)
     ids_l = x.ids.long()
     n_bytes = probe_bytes(x, P.N_DYN)
     rows = {}
@@ -913,7 +955,7 @@ def profile_orbit(cfg, dev, frames, card: str, n: int) -> dict:
 
 def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     """All phases on `dev`; returns the kernel rows with the launch
-    counts of the paths phases 2-5 drive (each engine run is a path)."""
+    counts of the paths phases 2-9 drive (each engine run is a path)."""
     import tempfile
 
     from kintinuous_tpu_torch.backend import native_ops
@@ -922,6 +964,7 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     from kintinuous_tpu_torch.ops.cuda_raycast import (
         build_mirror, mirror_refresh, tile_raycast)
     from kintinuous_tpu_torch.tools import proto_integrate as P
+    from kintinuous_tpu_torch.tracking.tracker import keeps_mirror
 
     wrappers = {"band_fusion": band_fusion, "free_carve": free_carve,
                 "mirror_refresh": mirror_refresh, "build_mirror": build_mirror,
@@ -967,12 +1010,24 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     print(json.dumps({"phase": "probe_tool", "card": card,
                       "output": out.getvalue().splitlines()}), flush=True)
     rows.update(check_probes(dev, card))
+    # an odd block count: no mirror, K5 in every raycast
+    odd = cfg.replace(volume_resolution=ODD_RESOLUTION)
+    assert not keeps_mirror(odd)
+    counted("odd_orbit", track_orbit, odd, dev, frames, poses, card, ODD_ORBIT_FRAMES,
+            "odd_orbit")
+    counted("odd_walk", walk_gt, odd, dev, card, "odd_walk")
     for path in ("orbit", "walk", "orbit_rgbd", "engine_mesh") + tuple(
             p for p, _ in ENGINE_RUNS):
         # K1-K4 run on every frame
         for name in ("band_fusion", "free_carve", "mirror_refresh", "tile_raycast"):
             assert by_path[path][name] > 0, f"{name} was not launched on the {path} path"
     assert by_path["resume"]["build_mirror"] > 0, "restore did not launch the rebuild"
+    for path, n_frames in (("odd_orbit", ODD_ORBIT_FRAMES), ("odd_walk", WALK_FRAMES)):
+        # one launch a frame of K1, K2, K4 and the rebuild (K5), none of K3
+        for name in ("band_fusion", "free_carve", "tile_raycast", "build_mirror"):
+            assert by_path[path][name] == n_frames, \
+                f"{name} launched {by_path[path][name]} times in {n_frames} {path} frames"
+        assert by_path[path]["mirror_refresh"] == 0, f"the {path} path refreshed a mirror"
     for name in ("probe_rows", "probe_dma", "probe_full", "probe_dyn"):
         assert by_path["probe_tool"][name] > 0, f"the probe tool did not launch {name}"
     for name in wrappers:

@@ -12,10 +12,12 @@ namespace kt {
 
 constexpr int kMaxDevices = 64;
 
-// cache: one zeroed array per kernel (a static at the call site). Returns
-// 0 if the query failed; the caller's cudaGetLastError() reports why.
+// cache: one zeroed array per kernel (a static at the call site);
+// max_per_sm > 0 caps the resident blocks an SM. Returns 0 if the query
+// failed; the caller's cudaGetLastError() reports why.
 template <typename Kernel>
-inline int persistent_blocks(Kernel kernel, int threads, int* cache) {
+inline int persistent_blocks(Kernel kernel, int threads, int* cache,
+                             int max_per_sm = 0) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
   if (cache[dev] == 0) {
@@ -25,6 +27,7 @@ inline int persistent_blocks(Kernel kernel, int threads, int* cache) {
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                       0) != cudaSuccess)
       return 0;
+    if (max_per_sm > 0 && per_sm > max_per_sm) per_sm = max_per_sm;
     cache[dev] = sms * per_sm;
   }
   return cache[dev];

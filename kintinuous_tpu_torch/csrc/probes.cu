@@ -11,37 +11,132 @@
 //                     rgb = sum_c img2[c, cy/2 + v/2, u/2],
 //                     out = t*0.5 + (rays + rgb)*0.5.
 //   P4 kt_probe_rows with a count in device memory replaces run_dyn (:200),
-//                     P1 over the first n ids with n read on the device:
-//                     blocks past n return, as the mirror refresh does with
-//                     its pair count.
+//                     P1 over the first min(max(n, 0), k) ids, n read on the
+//                     device.
 //
-// One CUDA block per selected row, one thread per float of it (512 = 4
-// sublanes x 128 lanes), updated in place: a row's 2 KB are read and written
-// once, neighbouring threads on neighbouring floats. The TPU probes DMA a
-// 112x256 (2 channels) and a 56x384 (3 channels) bf16 patch into VMEM per row
-// and gather from it with one-hot MXU products; here each thread reads its
-// few image values straight from device memory (the patches would need
-// 238 KB of shared memory a block, above Hopper's 227 KB, and P2 reads only
-// a 4x128 corner of its patch). Both images (1.8 MB) stay in L2.
+// The TPU probes DMA a 112x256 (2 channels) and a 56x384 (3 channels) bf16
+// patch into VMEM per row and gather from it with one-hot MXU products; here
+// each thread reads its few image values straight from device memory (the
+// patches would need 238 KB of shared memory a block, above Hopper's 227 KB).
+// Both images (1.8 MB) stay in L2. Rows are updated in place: a row's 2 KB are
+// read and written once.
 //
-// Bound on the H100: memory. P1 moves 2 KB in and 2 KB out per row plus its
-// id; P2 and P3 add the images once and two corners per row. Runs on the
-// caller's stream, allocates nothing. -fmad=false keeps t*0.5 + x*0.5 two
-// roundings, as PyTorch's plain version computes it.
+// Bound on the H100: bytes (each row in and out once, 33.6 MB at the tool's
+// K = 8192), 10 us at 3.35 TB/s, about twice the 5.7 us floor of a launch.
+// The first design, one 512-thread block a row, kept 528 rows in flight and
+// paid an id load and then a row load for each of 15.5 waves of blocks.
+//
+// P1/P4 (rows_kernel): a persistent grid (kt::persistent_blocks) of warps,
+// each walking a contiguous share of the rows, a row at a time. Lane l holds
+// the row's float4s l, l+32, l+64 and l+96 (a warp 512 contiguous bytes a
+// load). A warp loads the ids of its next 32 rows in one coalesced load and
+// hands them out with __shfl_sync, and issues the next row's loads before it
+// stores the current one. P4 reads the count once a warp (lane 0, then a
+// shuffle) and splits min(max(n, 0), k) rows over the warps; the host sizes
+// the grid from k and never reads n (the first design launched k blocks, and
+// those past n read n and returned).
+//
+// P3 (full_kernel): a persistent grid of 256-thread blocks, 2 an SM, each
+// walking a contiguous share of the rows a row at a time, two floats a
+// thread; a thread issues its 10 gathers together, and the next row's id,
+// corner and floats are loaded before this row's gathers. The gathers set
+// the time, not the row stream. Tried and timed on an H100 80GB HBM3 at
+// 700 W (the probe tool's inputs, cold L2; the first design 0.0430 ms):
+// - the warp-a-row walk of P1 with its 80 gathers a lane in two batches
+//   of 40 (128 registers, no spills): 0.0559-0.0622 ms with 2 blocks of 8
+//   warps an SM, 0.0433 with 1;
+// - this design: 0.0375-0.0378 ms with 2 blocks an SM, 0.0392 with 4,
+//   0.0468 with 1; with 512 threads a row (a float each) 0.0386 at 2
+//   blocks an SM, 0.0477 at 1; with 128 (a float4 each) 0.0436 at 4;
+// - rows grouped by corner (each block scans the corners and takes the
+//   rows of its own, so an SM's gathers share L1 lines): 0.080-0.151 ms;
+// - a row's floats counting-sorted by v in shared memory (a warp's
+//   gathers then hit a few image rows, not ~25): 0.0365.
+// Two rows in flight an SM is best; fewer distinct lines a warp's gather
+// barely matters, so the sort is not worth its code.
+//
+// kt_probe_dma (P2) keeps the one-block-a-row design. Runs on the caller's
+// stream, allocates nothing. -fmad=false keeps t*0.5 + x*0.5 two roundings,
+// as PyTorch's plain version computes it; bf16 -> f32 is exact (a 16-bit
+// shift); rows are unique, so the order they are visited in changes no bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "grid.cuh"
 
 namespace {
 
 constexpr int ROW = 512;  // floats of a (4,128) row
 constexpr int LANES = 128;
+constexpr int kRowVec = ROW / 4;        // float4s of a row
+constexpr int kLaneVec = kRowVec / 32;  // float4s a lane holds of a row
+constexpr int kWarps = 8;               // warps a block of rows_kernel
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kAll = 0xffffffffu;
 
-// n_dev == nullptr: the count is k
-__global__ void rows_kernel(float* __restrict__ tsdf, const int* __restrict__ ids,
-                            const int* __restrict__ n_dev) {
-  if (n_dev != nullptr && (int)blockIdx.x >= *n_dev) return;
-  tsdf[(size_t)ids[blockIdx.x] * ROW + threadIdx.x] += 1.0f;
+// the warp's share [s, e) of n rows, n split evenly over the grid's warps
+__device__ __forceinline__ void warp_share(int n, int& s, int& e) {
+  const long long warps = (long long)gridDim.x * kWarps;
+  const long long w = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  s = (int)(w * n / warps);
+  e = (int)((w + 1) * n / warps);
+}
+
+struct Row {
+  float4 v[kLaneVec];
+};
+
+__device__ __forceinline__ Row load_row(const float4* p, int lane) {
+  Row r;
+#pragma unroll
+  for (int q = 0; q < kLaneVec; ++q) r.v[q] = p[lane + 32 * q];
+  return r;
+}
+
+__device__ __forceinline__ void plus_one_store(float4* p, Row r, int lane) {
+#pragma unroll
+  for (int q = 0; q < kLaneVec; ++q) {
+    r.v[q].x += 1.0f;
+    r.v[q].y += 1.0f;
+    r.v[q].z += 1.0f;
+    r.v[q].w += 1.0f;
+    p[lane + 32 * q] = r.v[q];
+  }
+}
+
+// n_dev == nullptr: the count is k. A warp walks rows [s, e): the ids 32
+// at a time (lane l holds row base + l's), the next row's floats loaded
+// before the current row is stored. Warp-uniform.
+__global__ void __launch_bounds__(kThreads, 4)
+    rows_kernel(float4* __restrict__ tsdf, const int* __restrict__ ids,
+                const int* __restrict__ n_dev, int k) {
+  const int lane = threadIdx.x & 31;
+  int n = k;
+  if (n_dev != nullptr) {
+    int v = 0;
+    if (lane == 0) v = __ldg(n_dev);
+    n = min(max(__shfl_sync(kAll, v, 0), 0), k);
+  }
+  int s, e;
+  warp_share(n, s, e);
+  if (s >= e) return;
+  int batch = s + lane < e ? __ldg(ids + s + lane) : 0;
+  int id = __shfl_sync(kAll, batch, 0);
+  Row cur = load_row(tsdf + (size_t)id * kRowVec, lane);
+  for (int i = s; i < e; ++i) {
+    const int i1 = i + 1;
+    int nid = 0;
+    Row nxt;
+    if (i1 < e) {
+      if (((i1 - s) & 31) == 0) batch = i1 + lane < e ? __ldg(ids + i1 + lane) : 0;
+      nid = __shfl_sync(kAll, batch, (i1 - s) & 31);
+      nxt = load_row(tsdf + (size_t)nid * kRowVec, lane);
+    }
+    plus_one_store(tsdf + (size_t)id * kRowVec, cur, lane);
+    cur = nxt;
+    id = nid;
+  }
 }
 
 __global__ void dma_kernel(float* __restrict__ tsdf, const int* __restrict__ ids,
@@ -52,34 +147,96 @@ __global__ void dma_kernel(float* __restrict__ tsdf, const int* __restrict__ ids
   tsdf[(size_t)ids[i] * ROW + threadIdx.x] += p;
 }
 
-__global__ void full_kernel(float* __restrict__ tsdf, const int* __restrict__ ids,
-                            const int* __restrict__ cy, const int* __restrict__ cx,
-                            const __nv_bfloat16* __restrict__ img,
-                            const __nv_bfloat16* __restrict__ img2, int H, int W,
-                            int H2, int W2, int pw, int ph) {
-  const int i = blockIdx.x;
-  float* row = tsdf + (size_t)ids[i] * ROW + threadIdx.x;
-  const float t = *row;
-  const float a = fabsf(t);
-  const int u = (int)fminf(fmaxf(a * 100.0f, 0.0f), (float)(pw - 1));
-  const int v = (int)fminf(fmaxf(a * 70.0f, 0.0f), (float)(ph - 1));
-  const size_t px = (size_t)(cy[i] + v) * W + cx[i] + u;
-  const float rays = __bfloat162float(img[px]) +
-                     __bfloat162float(img[(size_t)H * W + px]);
-  const size_t px2 = (size_t)(cy[i] / 2 + v / 2) * W2 + u / 2;
-  const float rgb = (__bfloat162float(img2[px2]) +
-                     __bfloat162float(img2[(size_t)H2 * W2 + px2])) +
-                    __bfloat162float(img2[(size_t)2 * H2 * W2 + px2]);
-  *row = t * 0.5f + (rays + rgb) * 0.5f;
+__device__ __forceinline__ float bf16_bits(unsigned short h) {
+  return __uint_as_float((unsigned)h << 16);
+}
+
+constexpr int kFullThreads = ROW / 2;  // a row a block, two floats a thread
+constexpr int kFullBlocksPerSm = 2;
+
+struct Full {
+  const unsigned short* img;   // (2,H,W) bf16 bits
+  const unsigned short* img2;  // (3,H2,W2) bf16 bits
+  int HW, W, H2W2, W2, pw1, ph1;
+
+  // a thread's two floats: their 10 taps issued together, then the sums
+  __device__ __forceinline__ float2 operator()(float2 r, int cy,
+                                               int cx) const {
+    float t[2] = {r.x, r.y};
+    unsigned short g[2][5];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float m = fabsf(t[j]);
+      const int u = (int)fminf(fmaxf(m * 100.0f, 0.0f), (float)pw1);
+      const int v = (int)fminf(fmaxf(m * 70.0f, 0.0f), (float)ph1);
+      const int px = (cy + v) * W + cx + u;
+      const int px2 = (cy / 2 + v / 2) * W2 + u / 2;
+      g[j][0] = __ldg(img + px);
+      g[j][1] = __ldg(img + HW + px);
+      g[j][2] = __ldg(img2 + px2);
+      g[j][3] = __ldg(img2 + H2W2 + px2);
+      g[j][4] = __ldg(img2 + 2 * H2W2 + px2);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float rays = bf16_bits(g[j][0]) + bf16_bits(g[j][1]);
+      const float rgb =
+          (bf16_bits(g[j][2]) + bf16_bits(g[j][3])) + bf16_bits(g[j][4]);
+      t[j] = t[j] * 0.5f + (rays + rgb) * 0.5f;
+    }
+    return make_float2(t[0], t[1]);
+  }
+};
+
+// a block walks a contiguous share of the rows, a row at a time, loading
+// the next row (its id, corner and floats) before this row's gathers
+__global__ void __launch_bounds__(kFullThreads)
+    full_kernel(float2* __restrict__ tsdf, const int* __restrict__ ids,
+                const int* __restrict__ cy, const int* __restrict__ cx,
+                const Full f, int k) {
+  const int s = (int)((long long)blockIdx.x * k / gridDim.x);
+  const int e = (int)((long long)(blockIdx.x + 1) * k / gridDim.x);
+  if (s >= e) return;
+  const int tid = threadIdx.x;
+  int id = __ldg(ids + s), ccy = __ldg(cy + s), ccx = __ldg(cx + s);
+  float2 cur = tsdf[(size_t)id * kFullThreads + tid];
+  for (int i = s; i < e; ++i) {
+    int nid = 0, ncy = 0, ncx = 0;
+    float2 nxt = cur;
+    if (i + 1 < e) {
+      nid = __ldg(ids + i + 1);
+      ncy = __ldg(cy + i + 1);
+      ncx = __ldg(cx + i + 1);
+      nxt = tsdf[(size_t)nid * kFullThreads + tid];
+    }
+    tsdf[(size_t)id * kFullThreads + tid] = f(cur, ccy, ccx);
+    cur = nxt;
+    id = nid;
+    ccy = ncy;
+    ccx = ncx;
+  }
+}
+
+// blocks for k rows: at most the resident grid (capped at max_per_sm
+// blocks an SM), and no more than the rows take
+template <typename Kernel>
+int row_blocks(Kernel kernel, int threads, int rows_a_block, int k, int* cache,
+               int max_per_sm = 0) {
+  const int resident = kt::persistent_blocks(kernel, threads, cache, max_per_sm);
+  const int need = (k + rows_a_block - 1) / rows_a_block;
+  return need < resident ? need : resident;
 }
 
 }  // namespace
 
 extern "C" int kt_probe_rows(void* tsdf, const void* ids, const void* n_dev, int k,
                              void* stream) {
+  static int grid_cache[kt::kMaxDevices];
   if (k > 0) {
-    rows_kernel<<<k, ROW, 0, (cudaStream_t)stream>>>(
-        (float*)tsdf, (const int*)ids, (const int*)n_dev);
+    rows_kernel<<<row_blocks(rows_kernel, kThreads, kWarps, k, grid_cache),
+                  kThreads, 0,
+                  (cudaStream_t)stream>>>((float4*)tsdf, (const int*)ids,
+                                          (const int*)n_dev, k);
   }
   return (int)cudaGetLastError();
 }
@@ -99,11 +256,14 @@ extern "C" int kt_probe_full(void* tsdf, const void* ids, const void* cy,
                              const void* cx, const void* img, const void* img2,
                              int k, int H, int W, int H2, int W2, int pw, int ph,
                              void* stream) {
+  static int grid_cache[kt::kMaxDevices];
   if (k > 0) {
-    full_kernel<<<k, ROW, 0, (cudaStream_t)stream>>>(
-        (float*)tsdf, (const int*)ids, (const int*)cy, (const int*)cx,
-        (const __nv_bfloat16*)img, (const __nv_bfloat16*)img2, H, W, H2, W2, pw,
-        ph);
+    const Full f{(const unsigned short*)img, (const unsigned short*)img2,
+                 H * W, W, H2 * W2, W2, pw - 1, ph - 1};
+    full_kernel<<<row_blocks(full_kernel, kFullThreads, 1, k, grid_cache,
+                             kFullBlocksPerSm),
+                  kFullThreads, 0, (cudaStream_t)stream>>>(
+        (float2*)tsdf, (const int*)ids, (const int*)cy, (const int*)cx, f, k);
   }
   return (int)cudaGetLastError();
 }

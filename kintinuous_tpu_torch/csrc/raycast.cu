@@ -22,8 +22,13 @@
 //   unrolled and a thread issues the 40 corner loads of its 5 taps before it
 //   uses any of them: two rounds of gathers a pixel (the window, then the
 //   Newton step), where a run-time loop waited on six. The launcher
-//   instantiates (window, newton) = (5,0), (5,1) (the tracker's) and (5,2) and
-//   refuses any other pair; there is no run-time loop to fall back on;
+//   instantiates (window, newton) = (5,0), (5,1) (the tracker's) and (5,2)
+//   unrolled; every other pair with window >= 1 and newton >= 0 runs the
+//   run-time instantiation (tile_raycast_loop_kernel), which gathers a tap,
+//   evaluates it and moves on: the same per-tap formula in the same order,
+//   so the same bits as an unrolled pair would give, one round of gathers a
+//   tap. The first tap sits window/2 steps before the warm start, for an
+//   even window too, as the TPU kernel puts it;
 // - a block is a 32x4 tile of pixels, one warp a row of 32, so a warp's stores
 //   are 128 contiguous bytes of each output and the block's four rows read
 //   overlapping rows of the mirror from the L1; the ragged edge is masked;
@@ -32,11 +37,13 @@
 //   only that crossing's interpolation is divided. Each tap's arithmetic is
 //   the one formula, operation for operation, and -fmad=false keeps every
 //   rounding: the bits equal a run-time loop's.
-// kernel_stats: 96 registers at (5,1), the launch bound's cap, no spills; 772
-// SASS instructions a pixel in one straight run (the run-time loop it
-// replaces: 32 registers, 494 static instructions with a 144-instruction
-// body run once a tap). Tiles of 32x2 and 32x8 time the same; a cap of 4
-// blocks an SM leaves 72 of the 600 tiles to a second wave and is slower.
+// kernel_stats: 96 registers at (5,1), the launch bound's cap, no spills; 771
+// SASS instructions a pixel in one straight run; the run-time instantiation
+// 40 registers, 456 static instructions with a 141-instruction loop body.
+// On the H100 (phase 1 of chip_smoke.py) (5,3) through the run-time loops
+// takes 0.0115 ms against 0.0089 for the unrolled (5,1). Tiles of 32x2 and
+// 32x8 time the same; a cap of 4 blocks an SM leaves 72 of the 600 tiles to
+// a second wave and is slower.
 // Runs on the caller's stream and allocates nothing.
 
 #include <cuda_bf16.h>
@@ -113,24 +120,11 @@ __device__ __forceinline__ float interpolate(const Corners& c, float* grad) {
   return b0 * az + b1 * c.fz;
 }
 
-// params: [origin xyz (3) | rotation row-major (9)] of the camera->local pose
-template <int kWindow, int kNewton>
-__global__ void __launch_bounds__(kTileW* kTileH, kMinBlocks)
-    tile_raycast_kernel(const __nv_bfloat16* __restrict__ mirror,
-                        const float* __restrict__ t_warm,
-                        const float* __restrict__ params,
-                        float* __restrict__ t_out,
-                        float* __restrict__ found_out,
-                        float* __restrict__ gx_out,
-                        float* __restrict__ gy_out,
-                        float* __restrict__ gz_out, int h, int w, int R,
-                        float inv_vsz, float fx, float fy, float cx, float cy,
-                        float step, float trunc) {
-  const int px = blockIdx.x * kTileW + threadIdx.x;
-  const int py = blockIdx.y * kTileH + threadIdx.y;
-  if (px >= w || py >= h) return;
-  const int p = py * w + px;
-  const float u = (float)px, v = (float)py;
+// the unit ray of pixel (u,v); params: [origin xyz (3) | rotation
+// row-major (9)] of the camera->local pose
+__device__ __forceinline__ Ray pixel_ray(const float* __restrict__ params,
+                                         float u, float v, float fx, float fy,
+                                         float cx, float cy) {
   const float rxc = (u - cx) / fx, ryc = (v - cy) / fy;
   const float dxx = __ldg(params + 3) * rxc + __ldg(params + 4) * ryc +
                     __ldg(params + 5);
@@ -139,8 +133,81 @@ __global__ void __launch_bounds__(kTileW* kTileH, kMinBlocks)
   const float dzz = __ldg(params + 9) * rxc + __ldg(params + 10) * ryc +
                     __ldg(params + 11);
   const float inv_n = 1.0f / sqrtf(dxx * dxx + dyy * dyy + dzz * dzz);
-  const Ray ray{__ldg(params), __ldg(params + 1), __ldg(params + 2),
-                dxx * inv_n,   dyy * inv_n,       dzz * inv_n};
+  return Ray{__ldg(params), __ldg(params + 1), __ldg(params + 2),
+             dxx * inv_n,   dyy * inv_n,       dzz * inv_n};
+}
+
+// the window march's state: the first + -> - crossing (its left tap's
+// value and t, and the drop), whether every tap lay in the volume, and the
+// last tap's value
+struct March {
+  bool found, ok_all;
+  float prev_val, cross_val, cross_drop, cross_t;
+};
+
+// tap k of the window, at t0 + k*step, in the order of the sequential march
+__device__ __forceinline__ void march_tap(March& m, const Corners& tap, int k,
+                                          float t0, float step) {
+  const float val = interpolate(tap, nullptr);
+  m.ok_all = m.ok_all && tap.inreg;
+  if (k > 0 && !m.found && m.prev_val > 0.0f && val < 0.0f) {
+    m.found = true;
+    m.cross_val = m.prev_val;
+    m.cross_drop = m.prev_val - val;
+    m.cross_t = t0 + (float)(k - 1) * step;
+  }
+  m.prev_val = val;
+}
+
+// the crossing's ray length: one division, for the crossing taken (a
+// run-time loop divided at each tap and kept the first crossing's
+// quotient: the same bits)
+__device__ __forceinline__ float march_hit(const March& m, float step) {
+  const float frac =
+      fabsf(m.cross_drop) > 1e-12f ? m.cross_val / m.cross_drop : 0.5f;
+  return m.found ? m.cross_t + step * frac : 0.0f;
+}
+
+// one Newton step on the analytic gradient, from t_hit; g gets the
+// gradient (voxel units)
+__device__ __forceinline__ float newton_step(
+    const __nv_bfloat16* __restrict__ mirror, int R, const Ray& ray,
+    float inv_vsz, float trunc, float t_hit, bool& found, float* g) {
+  const Corners s = gather(mirror, R, ray, inv_vsz, t_hit);
+  const float val = interpolate(s, g);
+  found = found && s.inreg;
+  const float dval_dt =
+      (g[0] * ray.dnx + g[1] * ray.dny + g[2] * ray.dnz) * inv_vsz;
+  const float nstep = fabsf(dval_dt) > 1e-6f ? val / dval_dt : 0.0f;
+  return t_hit - fminf(fmaxf(nstep, -2.0f * trunc), 2.0f * trunc);
+}
+
+struct Out {
+  float *t, *found, *gx, *gy, *gz;
+};
+
+__device__ __forceinline__ void store(const Out& o, int p, bool found,
+                                      float t_hit, const float* g) {
+  o.t[p] = found ? t_hit : 0.0f;
+  o.found[p] = found ? 1.0f : 0.0f;
+  o.gx[p] = g[0];
+  o.gy[p] = g[1];
+  o.gz[p] = g[2];
+}
+
+// the window and the Newton count unrolled: (5,0), (5,1), (5,2)
+template <int kWindow, int kNewton>
+__global__ void __launch_bounds__(kTileW* kTileH, kMinBlocks)
+    tile_raycast_kernel(const __nv_bfloat16* __restrict__ mirror,
+                        const float* __restrict__ t_warm,
+                        const float* __restrict__ params, Out out, int h, int w,
+                        int R, float inv_vsz, float fx, float fy, float cx,
+                        float cy, float step, float trunc) {
+  const int px = blockIdx.x * kTileW + threadIdx.x;
+  const int py = blockIdx.y * kTileH + threadIdx.y;
+  if (px >= w || py >= h) return;
+  const int p = py * w + px;
+  const Ray ray = pixel_ray(params, (float)px, (float)py, fx, fy, cx, cy);
 
   const float warm = __ldg(t_warm + p);
   const float t0 = warm - (float)(kWindow / 2) * step;
@@ -149,66 +216,73 @@ __global__ void __launch_bounds__(kTileW* kTileH, kMinBlocks)
 #pragma unroll
   for (int k = 0; k < kWindow; ++k)
     taps[k] = gather(mirror, R, ray, inv_vsz, t0 + (float)k * step);
-
-  // the first + -> - crossing: its left tap's value and t, and the drop
-  bool found = false, ok_all = warm > 0.0f;
-  float prev_val = 0.0f, cross_val = 0.0f, cross_drop = 0.0f, cross_t = 0.0f;
+  March m{false, warm > 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int k = 0; k < kWindow; ++k) {
-    const float val = interpolate(taps[k], nullptr);
-    ok_all = ok_all && taps[k].inreg;
-    if (k > 0 && !found && prev_val > 0.0f && val < 0.0f) {
-      found = true;
-      cross_val = prev_val;
-      cross_drop = prev_val - val;
-      cross_t = t0 + (float)(k - 1) * step;
-    }
-    prev_val = val;
-  }
-  // one division, for the crossing taken (a run-time loop divided at each
-  // tap and kept the first crossing's quotient: the same bits)
-  const float frac =
-      fabsf(cross_drop) > 1e-12f ? cross_val / cross_drop : 0.5f;
-  float t_hit = found ? cross_t + step * frac : 0.0f;
-  found = found && ok_all;
+  for (int k = 0; k < kWindow; ++k) march_tap(m, taps[k], k, t0, step);
+  float t_hit = march_hit(m, step);
+  bool found = m.found && m.ok_all;
   // then one round of gathers a Newton step
   float g[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int it = 0; it < kNewton; ++it) {
-    const Corners s = gather(mirror, R, ray, inv_vsz, t_hit);
-    const float val = interpolate(s, g);
-    found = found && s.inreg;
-    const float dval_dt =
-        (g[0] * ray.dnx + g[1] * ray.dny + g[2] * ray.dnz) * inv_vsz;
-    const float nstep = fabsf(dval_dt) > 1e-6f ? val / dval_dt : 0.0f;
-    t_hit = t_hit - fminf(fmaxf(nstep, -2.0f * trunc), 2.0f * trunc);
-  }
-  t_out[p] = found ? t_hit : 0.0f;
-  found_out[p] = found ? 1.0f : 0.0f;
-  gx_out[p] = g[0];
-  gy_out[p] = g[1];
-  gz_out[p] = g[2];
+  for (int it = 0; it < kNewton; ++it)
+    t_hit = newton_step(mirror, R, ray, inv_vsz, trunc, t_hit, found, g);
+  store(out, p, found, t_hit, g);
+}
+
+// any other (window >= 1, newton >= 0): run-time loops, a tap gathered and
+// evaluated before the next
+__global__ void __launch_bounds__(kTileW* kTileH)
+    tile_raycast_loop_kernel(const __nv_bfloat16* __restrict__ mirror,
+                             const float* __restrict__ t_warm,
+                             const float* __restrict__ params, Out out, int h,
+                             int w, int R, float inv_vsz, float fx, float fy,
+                             float cx, float cy, float step, float trunc,
+                             int window, int newton) {
+  const int px = blockIdx.x * kTileW + threadIdx.x;
+  const int py = blockIdx.y * kTileH + threadIdx.y;
+  if (px >= w || py >= h) return;
+  const int p = py * w + px;
+  const Ray ray = pixel_ray(params, (float)px, (float)py, fx, fy, cx, cy);
+
+  const float warm = __ldg(t_warm + p);
+  const float t0 = warm - (float)(window / 2) * step;
+  March m{false, warm > 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < window; ++k)
+    march_tap(m, gather(mirror, R, ray, inv_vsz, t0 + (float)k * step), k, t0,
+              step);
+  float t_hit = march_hit(m, step);
+  bool found = m.found && m.ok_all;
+  float g[3] = {0.0f, 0.0f, 0.0f};
+  for (int it = 0; it < newton; ++it)
+    t_hit = newton_step(mirror, R, ray, inv_vsz, trunc, t_hit, found, g);
+  store(out, p, found, t_hit, g);
+}
+
+struct Args {
+  const __nv_bfloat16* mirror;
+  const float *t_warm, *params;
+  Out out;
+  int h, w, R;
+  float inv_vsz, fx, fy, cx, cy, step, trunc;
+};
+
+dim3 tile_grid(const Args& a) {
+  return dim3((a.w + kTileW - 1) / kTileW, (a.h + kTileH - 1) / kTileH);
 }
 
 template <int kWindow, int kNewton>
-void launch(const void* mirror, const void* t_warm, const void* params,
-            void* t_out, void* found_out, void* gx_out, void* gy_out,
-            void* gz_out, int h, int w, int R, float inv_vsz, float fx,
-            float fy, float cx, float cy, float step, float trunc,
-            cudaStream_t stream) {
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
+void launch(const Args& a, cudaStream_t stream) {
   tile_raycast_kernel<kWindow, kNewton>
-      <<<grid, dim3(kTileW, kTileH), 0, stream>>>(
-          (const __nv_bfloat16*)mirror, (const float*)t_warm,
-          (const float*)params, (float*)t_out, (float*)found_out,
-          (float*)gx_out, (float*)gy_out, (float*)gz_out, h, w, R, inv_vsz, fx,
-          fy, cx, cy, step, trunc);
+      <<<tile_grid(a), dim3(kTileW, kTileH), 0, stream>>>(
+          a.mirror, a.t_warm, a.params, a.out, a.h, a.w, a.R, a.inv_vsz, a.fx,
+          a.fy, a.cx, a.cy, a.step, a.trunc);
 }
 
 }  // namespace
 
-// Returns cudaErrorInvalidValue, launching nothing, for a (window, newton)
-// pair that is not instantiated (ops/cuda_raycast.RAYCAST_PAIRS).
+// Returns cudaErrorInvalidValue, launching nothing, for window < 1 or
+// newton < 0. (5,0), (5,1) and (5,2) run unrolled
+// (ops/cuda_raycast.RAYCAST_PAIRS), every other pair the run-time loops.
 extern "C" int kt_tile_raycast(const void* mirror, const void* t_warm,
                                const void* params, void* t_out,
                                void* found_out, void* gx_out, void* gy_out,
@@ -216,13 +290,25 @@ extern "C" int kt_tile_raycast(const void* mirror, const void* t_warm,
                                float fx, float fy, float cx, float cy,
                                float step, float trunc, int window, int newton,
                                void* stream) {
+  if (window < 1 || newton < 0) return (int)cudaErrorInvalidValue;
+  if (h <= 0 || w <= 0) return (int)cudaGetLastError();
+  const Args a{(const __nv_bfloat16*)mirror,
+               (const float*)t_warm,
+               (const float*)params,
+               Out{(float*)t_out, (float*)found_out, (float*)gx_out,
+                   (float*)gy_out, (float*)gz_out},
+               h, w, R, inv_vsz, fx, fy, cx, cy, step, trunc};
+  const cudaStream_t s = (cudaStream_t)stream;
   decltype(&launch<5, 1>) run = nullptr;
   if (window == 5 && newton == 0) run = &launch<5, 0>;
   if (window == 5 && newton == 1) run = &launch<5, 1>;
   if (window == 5 && newton == 2) run = &launch<5, 2>;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  if (h > 0 && w > 0)
-    run(mirror, t_warm, params, t_out, found_out, gx_out, gy_out, gz_out, h, w,
-        R, inv_vsz, fx, fy, cx, cy, step, trunc, (cudaStream_t)stream);
+  if (run != nullptr) {
+    run(a, s);
+  } else {
+    tile_raycast_loop_kernel<<<tile_grid(a), dim3(kTileW, kTileH), 0, s>>>(
+        a.mirror, a.t_warm, a.params, a.out, a.h, a.w, a.R, a.inv_vsz, a.fx,
+        a.fy, a.cx, a.cy, a.step, a.trunc, window, newton);
+  }
   return (int)cudaGetLastError();
 }

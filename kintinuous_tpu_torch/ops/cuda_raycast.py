@@ -183,8 +183,11 @@ def tile_raycast_plain(mirror, t_warm, params, cam: CameraIntrinsics,
     hc = _f32(np.float32(R) - np.float32(1.002))
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
     v = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    rxc = (u - cam.cx) / cam.fx
-    ryc = (v - cam.cy) / cam.fy
+    # tensor divisors: on the card PyTorch divides by a Python float as a
+    # product with its reciprocal, which rounds apart from the kernel's
+    # division (on the CPU both are the division)
+    rxc = (u - cam.cx) / torch.full_like(u, cam.fx)
+    ryc = (v - cam.cy) / torch.full_like(v, cam.fy)
     o = params[0:3]
     d = [params[3 + 3 * r] * rxc + params[4 + 3 * r] * ryc + params[5 + 3 * r]
          for r in range(3)]
@@ -224,7 +227,8 @@ def tile_raycast_plain(mirror, t_warm, params, cam: CameraIntrinsics,
     return t_out, found.to(torch.float32), gx, gy, gz
 
 
-# the (window, newton) pairs csrc/raycast.cu compiles its kernel for
+# the (window, newton) pairs csrc/raycast.cu unrolls; every other pair
+# with window >= 1 and newton >= 0 runs its run-time loops
 RAYCAST_PAIRS = ((5, 0), (5, 1), (5, 2))
 
 
@@ -243,14 +247,15 @@ def tile_raycast(mirror, t_warm, params, cam: CameraIntrinsics,
     lengths t_warm (h,w; 0 = none), for the pose whose origin and
     rotation are `params` (replaces pallas_raycast._raycast_kernel).
     Returns (t_hit, found, gx, gy, gz), on the card five views of one
-    (5,h,w) tensor. The card takes the (window, newton) pairs of
-    RAYCAST_PAIRS and raises ValueError on any other."""
+    (5,h,w) tensor. The kernel runs the pairs of RAYCAST_PAIRS unrolled
+    and any other with run-time loops; window < 1 or newton < 0 raises
+    ValueError."""
+    if window < 1 or newton < 0:
+        raise ValueError(f"tile_raycast: (window, newton) = ({window}, {newton}); "
+                         "want window >= 1 and newton >= 0")
     if mirror.device.type == "cpu":
         return tile_raycast_plain(mirror, t_warm, params, cam, voxel_size,
                                   trunc_dist, window, newton)
-    if (window, newton) not in RAYCAST_PAIRS:
-        raise ValueError(f"tile_raycast: (window, newton) = ({window}, {newton}) is "
-                         f"not compiled; the card takes {RAYCAST_PAIRS}")
     K.require_cuda("tile_raycast", mirror, t_warm, params)
     h, w = t_warm.shape
     out = torch.empty((5, h, w), dtype=torch.float32, device=t_warm.device)

@@ -12,7 +12,8 @@ The file format is the JAX package's: one compressed npz with a JSON
 `__meta__` entry, the cw volume as uint32. A checkpoint written by
 either package loads into the other. The dense bf16 mirror is not
 saved: restore rebuilds it from the volume with `build_mirror` (K5),
-as the JAX package's _rebuild_logical does with build_logical_bf16.
+as the JAX package's _rebuild_logical does with build_logical_bf16, for
+a tracker that keeps one (an even block count).
 The RGB-D pyramid is not saved either: a restored tracker keeps the one
 it was built with, as the JAX package's does.
 
@@ -146,7 +147,10 @@ def _restore_tracker(data, meta, tracker: Tracker) -> Tracker:
         pred_pose=t("pred_pose"), frame=t("frame", np.int32),
         prev_delta=(t("prev_delta") if "prev_delta" in data
                     else torch.eye(4, dtype=torch.float32, device=dev)),
-        logical=build_mirror(vol.tsdf, R, out=st.logical),
+        # a tracker without a mirror (odd block count) rebuilds it in
+        # every raycast
+        logical=(None if st.logical is None
+                 else build_mirror(vol.tsdf, R, out=st.logical)),
     )
     tracker.poses = [p for p in data["poses"]]
     tracker.stamps_us = [int(x) for x in data["stamps_us"]]

@@ -90,6 +90,9 @@ def run_rows(tsdf, ids) -> None:
         run_rows_plain(tsdf, ids)
         return
     K.require_cuda("run_rows", tsdf, ids)
+    K.require_cuda("run_rows", tsdf, align=16)  # float4 rows
+    if ids.shape[0] == 0:  # no row: nothing to launch
+        return
     K.check(_lib().kt_probe_rows(tsdf.data_ptr(), ids.data_ptr(), None, ids.shape[0],
                                  K.stream_of(tsdf)), "kt_probe_rows")
     run_rows.launches += 1
@@ -120,6 +123,8 @@ def run_dma(tsdf, ids, corners, img, img2) -> None:
         return
     cy, cx = corners
     K.require_cuda("run_dma", tsdf, ids, cy, cx, img)
+    if ids.shape[0] == 0:
+        return
     K.check(_lib().kt_probe_dma(tsdf.data_ptr(), ids.data_ptr(), cy.data_ptr(),
                                 cx.data_ptr(), img.data_ptr(), ids.shape[0],
                                 img.shape[2], K.stream_of(tsdf)), "kt_probe_dma")
@@ -153,6 +158,9 @@ def run_full(tsdf, ids, corners, img, img2) -> None:
         return
     cy, cx = corners
     K.require_cuda("run_full", tsdf, ids, cy, cx, img, img2)
+    K.require_cuda("run_full", tsdf, align=8)  # float2 loads
+    if ids.shape[0] == 0:
+        return
     K.check(_lib().kt_probe_full(
         tsdf.data_ptr(), ids.data_ptr(), cy.data_ptr(), cx.data_ptr(), img.data_ptr(),
         img2.data_ptr(), ids.shape[0], img.shape[1], img.shape[2], img2.shape[1],
@@ -172,12 +180,16 @@ def run_dyn_plain(n, tsdf, ids) -> None:
 
 
 def run_dyn(n, tsdf, ids) -> None:
-    """run_rows over the first n ids (P4); n is a () int32 tensor on the
-    volume's device and is never read on the host."""
+    """run_rows over the first n ids (P4), n clamped to [0, len(ids)];
+    n is a () int32 tensor on the volume's device and is never read on
+    the host."""
     if tsdf.device.type == "cpu":
         run_dyn_plain(n, tsdf, ids)
         return
     K.require_cuda("run_dyn", tsdf, ids, n)
+    K.require_cuda("run_dyn", tsdf, align=16)  # float4 rows
+    if ids.shape[0] == 0:
+        return
     K.check(_lib().kt_probe_rows(tsdf.data_ptr(), ids.data_ptr(), n.data_ptr(),
                                  ids.shape[0], K.stream_of(tsdf)), "kt_probe_rows")
     run_dyn.launches += 1

@@ -9,7 +9,9 @@ band extraction (and, with meshing on, the band's surface-nets mesh) and
 the roll of the blocked volume, block-classified fusion with the mirror
 refresh, and the warm-started raycast that predicts the next frame's
 maps. The volume and the mirror are updated in place; the RGB-D pyramid
-of the frame is carried to the next one in the state.
+of the frame is carried to the next one in the state. A volume with an
+odd number of blocks an edge keeps no mirror (`keeps_mirror`): the
+raycast rebuilds it from the volume every frame.
 
 The shift decision is the step's only host synchronisation: `jax.lax.
 cond` on the shift becomes a Python `if` on one host read of the three
@@ -119,14 +121,20 @@ _AXIS_DIM = {
 
 
 def check_supported(cfg: KintinuousConfig) -> None:
-    """This port covers the fast step with the mirror (ICP, RGB-D or
-    ground-truth odometry, meshing on or off); anything else raises
-    instead of running something else."""
+    """This port covers the fast step (ICP, RGB-D or ground-truth
+    odometry, meshing on or off); the dense path raises instead of
+    running something else."""
     if not cfg.fast_mode:
         raise NotImplementedError("the port runs fast_mode=True only")
-    if (cfg.volume_resolution // 8) % 2:
-        raise NotImplementedError(
-            "the mirror refresh needs an even number of blocks per edge")
+
+
+def keeps_mirror(cfg: KintinuousConfig) -> bool:
+    """Whether the step keeps the dense bf16 mirror current (K3): only
+    with an even number of blocks an edge, as the refresh works on
+    (bz, by) row-pairs. Otherwise the state carries no mirror and the
+    raycast rebuilds one from the volume every frame (K5), as the JAX
+    package's Tracker does (its logical0 = None)."""
+    return (cfg.volume_resolution // 8) % 2 == 0
 
 
 def preprocess_frame(cfg: KintinuousConfig, depth_raw, rgb_raw):
@@ -308,8 +316,9 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
 
 
 def initial_state(cfg: KintinuousConfig, device) -> TrackerState:
-    """Empty volume and mirror, camera at the volume centre, and for
-    RGB-D odometry the pyramid of an all-zero frame."""
+    """Empty volume and mirror (none with an odd block count), camera at
+    the volume centre, and for RGB-D odometry the pyramid of an all-zero
+    frame."""
     h, w = cfg.camera.height // 2, cfg.camera.width // 2
     R = cfg.volume_resolution
     pose = torch.eye(4, dtype=torch.float32, device=device)
@@ -332,7 +341,8 @@ def initial_state(cfg: KintinuousConfig, device) -> TrackerState:
         pw=torch.full((), cfg.odom_prior_weight, dtype=torch.float32,
                       device=device),
         # zeros == the mirror of the zero volume
-        logical=torch.zeros((R, R, R), dtype=torch.bfloat16, device=device),
+        logical=(torch.zeros((R, R, R), dtype=torch.bfloat16, device=device)
+                 if keeps_mirror(cfg) else None),
     )
 
 

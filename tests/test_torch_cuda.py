@@ -181,9 +181,11 @@ def test_build_mirror_is_bit_exact(frame_on_card, R):
         assert torch.equal(got.view(torch.int16), st.logical.view(torch.int16))
 
 
-@pytest.mark.parametrize("case", ["5,1", "5,0", "5,2", "all_miss", "ragged"])
+@pytest.mark.parametrize("case", ["5,1", "5,0", "5,2", "all_miss", "ragged",
+                                  "5,3", "3,1", "7,2"])
 def test_tile_raycast_matches_its_plain_version(frame_on_card, case):
-    """At each compiled (window, newton) pair: where both hit, depth
+    """At each unrolled (window, newton) pair, and at (5,3), (3,1) and
+    (7,2), which run the kernel's run-time loops: where both hit, depth
     within 1e-3 m and gradient within 1e-3; at most 0.1 % of pixels may
     disagree on a hit. With no warm start (t_warm all 0) nothing is
     found and t is 0 everywhere; a 117x157 crop masks the edge of the
@@ -215,16 +217,30 @@ def test_tile_raycast_matches_its_plain_version(frame_on_card, case):
         assert float((x - y)[where].abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("pair", [(5, 3), (3, 1)])
-def test_tile_raycast_refuses_a_pair_it_was_not_compiled_for(frame_on_card, pair):
+@pytest.mark.parametrize("pair", [(0, 1), (5, -1)])
+def test_tile_raycast_refuses_no_window_or_a_negative_newton_count(frame_on_card, pair):
+    """window < 1 or newton < 0 raises ValueError and launches nothing;
+    the C entry refuses the same pairs."""
+    from kintinuous_tpu_torch.ops import kernels as K
+    from kintinuous_tpu_torch.ops.cuda_raycast import (
+        _SIGNATURES_RAYCAST, _raycast_constants)
+
     cfg, st, T, depth_half, _, _, _ = frame_on_card
     cam_half = CAM.at_level(1)
     _, _, t_warm = ray_setup(cam_half, T, depth_half)
     before = tile_raycast.launches
-    with pytest.raises(ValueError, match="not compiled"):
+    with pytest.raises(ValueError, match="window >= 1 and newton >= 0"):
         tile_raycast(st.logical, t_warm, raycast_params(T), cam_half, cfg.voxel_size,
                      cfg.trunc_dist, *pair)
     assert tile_raycast.launches == before
+    h, w = t_warm.shape
+    out = torch.empty((5, h, w), dtype=torch.float32, device=t_warm.device)
+    err = K.library("raycast", _SIGNATURES_RAYCAST).kt_tile_raycast(
+        st.logical.data_ptr(), t_warm.data_ptr(), raycast_params(T).data_ptr(),
+        *(x.data_ptr() for x in out), h, w, st.logical.shape[0],
+        *_raycast_constants(cam_half, cfg.voxel_size, cfg.trunc_dist), *pair,
+        K.stream_of(t_warm))
+    assert err == 1  # cudaErrorInvalidValue
 
 
 def test_tracker_on_the_card_follows_the_cpu(card):
@@ -267,31 +283,64 @@ def test_batched_step_on_the_card_follows_the_cpu(card):
     assert len(na) == len(nb) and all(abs(a - b) <= 0.01 * max(a, b) for a, b in zip(na, nb))
 
 
-@pytest.mark.parametrize("probe", ["rows", "dma", "full", "dyn"])
+@pytest.mark.parametrize("probe", ["rows", "dma", "full", "dyn", "rows_0", "rows_1",
+                                   "rows_301", "full_0", "full_1", "full_301", "dyn_n0",
+                                   "dyn_nk", "dyn_nk5"])
 def test_probe_kernels_are_bit_exact(card, probe):
     """P1-P4 at the probe tool's shapes: bit-equal to their plain
-    versions, each call counted."""
+    versions, each call counted. P1 and P3 also over 0, 1 and 301 rows
+    (301 is no multiple of a block's warps), P4 with n = 0, k and k + 5
+    (the count clamped to [0, k])."""
     from kintinuous_tpu_torch.tools import proto_integrate as P
 
     x = P.make_inputs(card)
-    n = torch.tensor(P.N_DYN, dtype=torch.int32, device=card)
-    corners = (x.cy, x.cx)
+    name, _, edge = probe.partition("_")
+    m = P.N_K
+    if name in ("rows", "full") and edge:
+        m = int(edge)
+    n_dyn = {"": P.N_DYN, "n0": 0, "nk": P.N_K, "nk5": P.N_K + 5}[edge if name == "dyn" else ""]
+    n = torch.tensor(n_dyn, dtype=torch.int32, device=card)
+    ids, corners = x.ids[:m], (x.cy[:m], x.cx[:m])
     kernel, plain, args = {
-        "rows": (P.run_rows, P.run_rows_plain, (x.ids,)),
-        "dma": (P.run_dma, P.run_dma_plain, (x.ids, corners, x.img, x.img2)),
-        "full": (P.run_full, P.run_full_plain, (x.ids, corners, x.img, x.img2)),
-        "dyn": (lambda v, ids: P.run_dyn(n, v, ids),
-                lambda v, ids: P.run_dyn_plain(n, v, ids), (x.ids,)),
-    }[probe]
-    wrapper = getattr(P, f"run_{probe}")
+        "rows": (P.run_rows, P.run_rows_plain, (ids,)),
+        "dma": (P.run_dma, P.run_dma_plain, (ids, corners, x.img, x.img2)),
+        "full": (P.run_full, P.run_full_plain, (ids, corners, x.img, x.img2)),
+        "dyn": (lambda v, i: P.run_dyn(n, v, i),
+                lambda v, i: P.run_dyn_plain(n, v, i), (ids,)),
+    }[name]
+    wrapper = getattr(P, f"run_{name}")
     before = wrapper.launches
     got, want = x.tsdf.clone(), x.tsdf.clone()
     kernel(got, *args)
     plain(want, *args)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert wrapper.launches == before + (1 if m > 0 else 0)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert int((got != x.tsdf).any(dim=(1, 2)).sum()) == (P.N_DYN if probe == "dyn" else P.N_K)
+    changed = min(max(n_dyn, 0), m) if name == "dyn" else m
+    assert int((got != x.tsdf).any(dim=(1, 2)).sum()) == changed
+
+
+def test_odd_block_tracker_on_the_card_follows_the_cpu(card):
+    """A 72^3 volume (9 blocks an edge) over 3 m: no mirror on either
+    device, the card's raycast rebuilds it with K5 every frame and K3 is
+    never launched; six tracked frames agree with the CPU's within 1e-4,
+    as the even-count tracker above."""
+    cfg = cfg_small().replace(volume_size=3.0, volume_resolution=72)
+    poses = orbit_trajectory(6, radius=0.06, angle_deg=3.0)
+    frames = [render_frame(Scene.default(), CAM, T) for T in poses]
+    refresh, rebuild = mirror_refresh.launches, build_mirror.launches
+    runs = []
+    for dev in (card, "cpu"):
+        tr = Tracker(cfg, device=dev)
+        for i, f in enumerate(frames):
+            tr.process_frame(*f, i * 33333)
+        tr.flush()
+        assert tr.state.logical is None
+        runs.append(tr)
+    assert mirror_refresh.launches == refresh
+    assert build_mirror.launches == rebuild + len(frames)
+    np.testing.assert_allclose(np.array(runs[0].poses), np.array(runs[1].poses), atol=1e-4)
+    assert np.array_equal(np.array(runs[0].shift_log), np.array(runs[1].shift_log))
 
 
 def test_config_b_tracker_on_the_card_follows_the_cpu(card):

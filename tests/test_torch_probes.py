@@ -88,3 +88,23 @@ def test_probe_tool_runs_on_the_cpu(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 4 and all(ln.endswith("ms  (cpu)") for ln in lines)
     assert [w.launches for w in (P.run_rows, P.run_dma, P.run_full, P.run_dyn)] == before
+
+
+@pytest.mark.parametrize("n", [0, K_SMALL + 5], ids=["n0", "n_past_k"])
+def test_run_dyn_walks_its_count_clamped_to_the_ids(tool, monkeypatch, n):
+    """P4 with n = 0 and with n past the k ids: the TPU tool's run_rows
+    over the first min(n, k) ids, bit for bit. A grid of 0 steps is the
+    identity (the interpreter cannot run one: it reads the first id),
+    so n = 0 must leave the volume as it was."""
+    x = P.make_inputs("cpu", n_rows=ROWS_SMALL, k=K_SMALL)
+    m = min(n, K_SMALL)
+    monkeypatch.setattr(tool, "N_ROWS", ROWS_SMALL)
+    monkeypatch.setattr(tool, "K", m)
+    got = x.tsdf.clone()
+    P.run_dyn(torch.tensor(n, dtype=torch.int32), got, x.ids)
+    want = x.tsdf.numpy()
+    if m:
+        with pltpu.force_tpu_interpret_mode():
+            want = tool.run_rows(jx(x.tsdf), jx(x.ids[:m]))
+    assert np.array_equal(bits(got.numpy()), bits(want))
+    assert int((got != x.tsdf).any(dim=(1, 2)).sum()) == m

@@ -44,22 +44,26 @@ def test_warm_start_is_the_jax_fast_steps(fused):
     np.testing.assert_allclose(t_warm.numpy(), ref, rtol=1e-6)
 
 
-@pytest.mark.parametrize("newton", [1, 2])
-def test_raycast_matches_the_tile_kernel(fused, newton):
+@pytest.mark.parametrize("newton,window", [
+    pytest.param(1, 5, id="1"), pytest.param(2, 5, id="2"), pytest.param(3, 5, id="3"),
+    pytest.param(1, 4, id="window4"), pytest.param(2, 7, id="window7")])
+def test_raycast_matches_the_tile_kernel(fused, newton, window):
     """tests/test_pallas_raycast.py's criteria, both ways round: each
     path finds >= 90 % of the other's hits; where both hit, median depth
     difference < 2e-3 m and p95 < one voxel; median normal dot > 0.99.
     The port has no tile regions, so no pixel misses one: its fallback
-    fraction is at most the TPU kernel's."""
+    fraction is at most the TPU kernel's. At the tracker's window of 5
+    with 1-3 Newton steps, and at windows of 4 (even: the march starts
+    two steps before the warm start, as the TPU kernel's) and 7."""
     cfg, vol, pose, depth_half, mirror = fused
     cam_half = cfg.camera.at_level(1)
     a = raycast_pallas(vol, cam_half, jnp.asarray(pose), None, jnp.asarray(depth_half),
                        cfg.voxel_size, cfg.volume_size, cfg.trunc_dist,
-                       newton=newton, interpret=True)
+                       window=window, newton=newton, interpret=True)
     pm = torch.from_numpy(np.asarray(mirror).view(np.int16).copy()).view(torch.bfloat16)
     b = raycast_cuda(port_vol(vol), port_cam(cam_half), tt(pose), tt(depth_half),
                      cfg.voxel_size, cfg.volume_size, cfg.trunc_dist, mirror=pm,
-                     newton=newton)
+                     window=window, newton=newton)
     da, db = np.asarray(a.depth), b.depth.numpy()
     ha, hb = da > 0, db > 0
     both = ha & hb
@@ -139,8 +143,7 @@ def _plane_mirror():
 @pytest.mark.parametrize("pair", [(5, 1), (5, 0), (5, 2), (3, 1)])
 def test_tile_raycast_on_the_cpu_is_its_plain_version(pair):
     """On CPU tensors the wrapper returns its plain version's five (h,w)
-    f32 maps unchanged, for any (window, newton) pair: only the card's
-    kernel is limited to the compiled pairs."""
+    f32 maps unchanged, for any (window, newton) pair the card takes."""
     from kintinuous_tpu_torch.ops.cuda_raycast import tile_raycast_plain
 
     args = (*_plane_mirror(), *pair)
@@ -153,8 +156,11 @@ def test_tile_raycast_on_the_cpu_is_its_plain_version(pair):
 
 
 def test_the_compiled_raycast_pairs_are_the_sources_and_the_trackers():
-    """RAYCAST_PAIRS names exactly the pairs csrc/raycast.cu instantiates,
-    and the tracker's (5, raycast_newton_iters) is one of them."""
+    """RAYCAST_PAIRS names exactly the pairs csrc/raycast.cu unrolls, and
+    the tracker's (5, raycast_newton_iters) is one of them; the C entry
+    refuses only window < 1 or newton < 0 (every other pair runs the
+    run-time instantiation), and the wrapper raises ValueError for
+    those pairs alone, before it reaches a kernel."""
     import re
 
     from kintinuous_tpu_torch.config import KintinuousConfig
@@ -166,3 +172,10 @@ def test_the_compiled_raycast_pairs_are_the_sources_and_the_trackers():
                 re.findall(r"run = &launch<(\d+), (\d+)>", src)}
     assert compiled == set(RAYCAST_PAIRS)
     assert (5, KintinuousConfig().raycast_newton_iters) in compiled
+    entry = src[src.index('extern "C" int kt_tile_raycast'):]
+    refusals = re.findall(r"if \((.*?)\) return \(int\)cudaErrorInvalidValue", entry)
+    assert refusals == ["window < 1 || newton < 0"]
+    assert "tile_raycast_loop_kernel<<<" in entry
+    for bad in ((0, 1), (5, -1)):
+        with pytest.raises(ValueError, match="window >= 1 and newton >= 0"):
+            tile_raycast(*_plane_mirror(), *bad)
