@@ -29,8 +29,8 @@ prediction, 16-voxel shifts, ICP odometry):
      in the order A B B A: 48 poses, ATE < 1 cm, shifts, a .pcd with
      points, and each run's fps;
   5. resumes phase 3's walk from a checkpoint saved after 20 frames (the
-     restore rebuilds the mirror): the mirror, cw, origin and poses
-     continue exactly;
+     restore rebuilds the mirror): the mirror, tsdf, cw, wrap, origin
+     and poses continue exactly;
   6. tracks phase 2's orbit at config B (config A plus fused ICP+RGB-D
      odometry, icp_plus_rgbd=True) with the rendered colour: ATE < 1 cm
      and RGB inliers on every tracked frame;
@@ -40,18 +40,30 @@ prediction, 16-voxel shifts, ICP odometry):
   8. runs the probe tool (kintinuous_tpu_torch.tools.proto_integrate,
      the port of tools/proto_integrate_pallas.py) at its shapes, then
      holds each probe kernel (P1-P4) against its plain version bit for
-     bit (P1 and P3 also over 0, 1 and 301 rows, P4 with n = 0, k and
-     k + 5) and times it beside its bound, its plain version and, for P1
-     and P4, PyTorch's index_add_;
+     bit (P1, P2 and P3 also over 0, 1 and 301 rows, P2 also with its
+     corners off an 8-byte boundary, P4 with n = 0, k and k + 5) and
+     times it beside its bound, its plain version and, for P1 and P4,
+     PyTorch's index_add_;
   9. at an odd block count, config A with a 504^3 volume (63 blocks an
      edge), where the step keeps no mirror and the raycast rebuilds it
      (K5) every frame: phase 2's orbit for 24 frames (ATE < 1 cm, ICP
      inliers > 2000) and phase 3's walk (ATE < 1 mm, slices hold
      points);
+ 10. the dense path (a run without --fast, the JAX CLI's default:
+     KintinuousConfig() with fast_mode off, 512^3 over 6 m, 640x480,
+     plain PyTorch): (a) one frame's integrate and raycast on the card
+     against the CPU at 256^3, within the CPU tests' tolerances; (b)
+     phase 2's orbit for 24 frames (ATE < 1 cm, ICP inliers > 2000; fps,
+     peak device memory) and 2 more under the profiler (launches a
+     frame, device busy ms); (c) phase 3's walk (ATE < 1 mm, slices hold
+     points); (d) the CLI with `-m` and no --fast on phase 4's log (ATE <
+     1 cm, a .pcd with points, a .ply with faces); (e) phase 5's resume
+     (tsdf, cw, wrap and origin bit-equal, poses within 1e-5);
 
 and checks that each run of phases 2-4, 6 and 7 launched K1-K4, phase 5
-the rebuild, phase 8 the four probes and phase 9 K1, K2, K4 and K5 once
-a frame and K3 never, with the counts set to 0 before each path.
+the rebuild, phase 8 the four probes, phase 9 K1, K2, K4 and K5 once a
+frame and K3 never, and phase 10 no kernel, with the counts set to 0
+before each path.
 `--trace FRAMES`
 then profiles that many further orbit frames (where a frame's time
 goes: host ms untraced and traced, device busy ms and idle share, host
@@ -99,7 +111,12 @@ ENGINE_FRAMES = 48
 # phase 4's engine runs: (path, batched), batched and per frame as A B B A
 ENGINE_RUNS = (("engine", True), ("engine_per_frame", False),
                ("engine_per_frame_2", False), ("engine_2", True))
-RESUME_AT = 20  # phase 5 saves after this many frames of the walk
+RESUME_AT = 20  # phases 5 and 10e save after this many frames of the walk
+DENSE_CHECK_RESOLUTION = 256  # phase 10a: card against CPU
+DENSE_ORBIT_FRAMES = 24  # phase 10b
+DENSE_TRACE_FRAMES = 2  # phase 10b's profiled frames
+DENSE_PATHS = ("dense_check", "dense_orbit", "dense_profile", "dense_walk", "dense_cli",
+               "dense_resume")
 # the step's torch.profiler ranges (tracking/tracker.py)
 STAGES = ("kt.preprocess", "kt.odometry", "kt.shift", "kt.integrate", "kt.raycast")
 
@@ -659,12 +676,13 @@ def write_engine_log(cfg, log_dir: str) -> None:
         f.write(f"{cam.fx} {cam.fy} {cam.cx} {cam.cy} {cam.width} {cam.height}\n")
 
 
-def resume(cfg, dev, poses, frames, card: str) -> dict:
+def resume(cfg, dev, poses, frames, card: str, phase: str = "resume") -> dict:
     """Phase 5: replay the walk for RESUME_AT frames, save a checkpoint,
     restore it into a fresh Tracker (the mirror is rebuilt by K5), and
     continue both trackers over the rest of the walk: the restored mirror
-    is bit-equal to the live one, and after the rest cw is bit-equal,
-    the origin equal and the poses within 1e-5."""
+    is bit-equal to the live one, and after the rest tsdf and cw are
+    bit-equal, wrap and origin equal and the poses within 1e-5. Phase
+    10e: the same on the dense path (no mirror)."""
     import tempfile
 
     import torch
@@ -691,21 +709,29 @@ def resume(cfg, dev, poses, frames, card: str) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_load = time.perf_counter() - t0
-    mirror_equal = torch.equal(a.state.logical.view(torch.int16),
-                               b.state.logical.view(torch.int16))
+    mirror_equal = None
+    if a.state.logical is not None:
+        mirror_equal = torch.equal(a.state.logical.view(torch.int16),
+                                   b.state.logical.view(torch.int16))
+        assert mirror_equal, "the restored mirror differs from the live one"
     feed(a, RESUME_AT, len(poses))
     feed(b, RESUME_AT, len(poses))
-    cw_equal = torch.equal(a.state.vol.cw, b.state.vol.cw)
-    origin_equal = torch.equal(a.state.vol.origin, b.state.vol.origin)
+    va, vb = a.state.vol, b.state.vol
+    cw_equal = torch.equal(va.cw, vb.cw)
+    origin_equal = torch.equal(va.origin, vb.origin)
+    tsdf_equal = torch.equal(va.tsdf.view(torch.int32), vb.tsdf.view(torch.int32))
+    wrap_equal = torch.equal(va.wrap, vb.wrap)
     pose_err = float(np.abs(np.array(a.poses) - np.array(b.poses)).max())
-    res = dict(phase="resume", card=card, frames=len(poses), resumed_at=RESUME_AT,
+    res = dict(phase=phase, card=card, frames=len(poses), resumed_at=RESUME_AT,
                save_s=t_save, load_s=t_load, checkpoint_mb=mb,
                mirror_bit_equal=mirror_equal, cw_bit_equal=cw_equal,
-               origin_equal=origin_equal, pose_max_abs_err=pose_err,
+               tsdf_bit_equal=tsdf_equal, wrap_equal=wrap_equal,
+               wrap=va.wrap.tolist(), origin_equal=origin_equal,
+               pose_max_abs_err=pose_err,
                shift_frames=sum(1 for s in a.shift_log if np.any(s != 0)))
     print(json.dumps(res), flush=True)
-    assert mirror_equal, "the restored mirror differs from the live one"
-    assert cw_equal and origin_equal and pose_err <= 1e-5, "resume is not exact"
+    assert tsdf_equal and cw_equal and wrap_equal and origin_equal and pose_err <= 1e-5, \
+        "resume is not exact"
     return res
 
 
@@ -827,7 +853,14 @@ def check_probes(dev, card: str) -> dict:
     for m in (0, 1, 301):
         part = (x.ids[:m], (x.cy[:m], x.cx[:m]), x.img, x.img2)
         edges[f"probe_rows,{m}"] = (P.run_rows, P.run_rows_plain, part[:1])
+        edges[f"probe_dma,{m}"] = (P.run_dma, P.run_dma_plain, part)
         edges[f"probe_full,{m}"] = (P.run_full, P.run_full_plain, part)
+    # P2's corner off an 8-byte boundary (its 2-byte loads): every row,
+    # and rows mixed with aligned ones
+    for case, shift in (("cx+1", 1), ("cx+i%5", torch.arange(k, device=dev) % 5)):
+        cx = (x.cx + shift).to(torch.int32)
+        edges[f"probe_dma,{case}"] = (P.run_dma, P.run_dma_plain,
+                                      (x.ids, (x.cy, cx), x.img, x.img2))
     for m in (0, k, k + 5, -3):
         n_m = torch.tensor(m, dtype=torch.int32, device=dev)
         edges[f"probe_dyn,n={m}"] = (
@@ -883,13 +916,143 @@ def check_probes(dev, card: str) -> dict:
                    library_host_ms=(P.time_in_place(library, x.tsdf, *args,
                                                     timer=timer["host"])
                                     if library is not None else None))
+        if name == "probe_dma":  # its 2-byte path: every corner off 8 bytes
+            row["ms_cx_plus_1"] = P.time_in_place(
+                kernel, x.tsdf, x.ids, (x.cy, x.cx + 1), x.img, x.img2)
         rows[name] = row
         print(json.dumps(row), flush=True)
     return rows
 
 
-def profile_orbit(cfg, dev, frames, card: str, n: int) -> dict:
-    """Where a tracked orbit frame's time goes: 8 warm-up frames, `n`
+def dense_card_vs_cpu(dev, frames, poses, card: str) -> dict:
+    """Phase 10a: the dense path's integrate and raycast, one frame on the
+    card and on the CPU from the same inputs, at DENSE_CHECK_RESOLUTION
+    (6 m, 640x480): a volume fused from three ground-truth views on the
+    card, copied to the CPU, then the fourth view fused and raycast on
+    both. Held to the CPU tests' tolerances against the JAX package
+    (tests/test_torch_dense_ops.py): tsdf within 2e-5, weight bytes
+    equal, colour bytes within 1; hit flips at most 0.1 % of pixels,
+    depth and vmap within 1e-4 m and normals within 1e-3 where both hit."""
+    import torch
+
+    from kintinuous_tpu_torch.config import KintinuousConfig
+    from kintinuous_tpu_torch.ops.raycast import raycast
+    from kintinuous_tpu_torch.ops.tsdf import VolumeState, integrate
+    from kintinuous_tpu_torch.tracking.tracker import Tracker, preprocess_frame
+
+    cfg = KintinuousConfig(volume_resolution=DENSE_CHECK_RESOLUTION)
+    tr = Tracker(cfg, device=dev)
+    for i in range(3):
+        tr.process_frame(*frames[i], i * 33333,
+                         ext_delta=gt_delta(poses[i - 1] if i else None, poses[i]))
+    tr.flush()
+    st = tr.state
+    T = st.pose @ torch.from_numpy(gt_delta(poses[2], poses[3])).to(dev)
+    d, c = (torch.from_numpy(np.asarray(x)).to(dev) for x in frames[3])
+    depth_m, rgb, _, color_w = preprocess_frame(cfg, d, c, half=False)
+    inputs = (depth_m, rgb, color_w, T)
+    out = []  # the card's, then the CPU's
+    for where in (dev, torch.device("cpu")):
+        vol = VolumeState(*(x.to(where, copy=True) for x in st.vol))
+        dm, rgb, cw, Tw = (x.to(where) for x in inputs)
+        t0 = time.perf_counter()
+        integrate(vol, cfg.camera, dm, rgb, cw, Tw, cfg.voxel_size, cfg.trunc_dist,
+                  float(cfg.max_weight))
+        rc = raycast(vol, cfg.camera, Tw, cfg.voxel_size, cfg.volume_size,
+                     cfg.trunc_dist, cfg.raycast_step_factor, cfg.raycast_min_range,
+                     cfg.raycast_max_range)
+        if where.type == "cuda":
+            torch.cuda.synchronize(where)
+        out.append((vol, rc, time.perf_counter() - t0))
+    (vk, rk, sk), (vc, rc_, sc) = out
+    t_err = float((vk.tsdf.cpu() - vc.tsdf).abs().max())
+    ck = vk.cw.cpu()
+    w_mis = int((((ck >> 24) & 0xFF) != ((vc.cw >> 24) & 0xFF)).sum())
+    c_err = max(int((((ck >> s) & 0xFF) - ((vc.cw >> s) & 0xFF)).abs().max())
+                for s in (0, 8, 16))
+    hk, hc = rk.depth.cpu() > 0, rc_.depth > 0
+    both = hk & hc
+    flips = float((hk != hc).float().mean())
+    d_err = float((rk.depth.cpu() - rc_.depth)[both].abs().max())
+    v_err = float((rk.vmap.cpu() - rc_.vmap)[:, both].abs().max())
+    n_err = float((rk.nmap.cpu() - rc_.nmap)[:, both].abs().max())
+    res = dict(phase="dense_card_vs_cpu", card=card, resolution=DENSE_CHECK_RESOLUTION,
+               tsdf_max_abs_err=t_err, weight_mismatch=w_mis, colour_max_err=c_err,
+               hits=int(hk.sum()), hit_flip_share=flips, depth_max_abs_err=d_err,
+               vmap_max_abs_err=v_err, nmap_max_abs_err=n_err,
+               card_seconds=sk, cpu_seconds=sc)
+    print(json.dumps(res), flush=True)
+    assert int(hk.sum()) > 0.5 * hk.numel(), "the dense raycast found few hits"
+    assert t_err <= 2e-5 and w_mis == 0 and c_err <= 1, (t_err, w_mis, c_err)
+    assert flips <= 1e-3 and d_err <= 1e-4 and v_err <= 1e-4 and n_err <= 1e-3, \
+        (flips, d_err, v_err, n_err)
+    return res
+
+
+def dense_orbit(cfg, dev, frames, poses, card: str) -> dict:
+    """Phase 10b: phase 2's orbit through the dense step for
+    DENSE_ORBIT_FRAMES frames (ICP at full resolution): ATE < 1 cm, ICP
+    inliers > 2000; fps and the peak device memory of the run, above
+    what was allocated before it (earlier phases' trackers collected
+    first: an engine's worker threads hold it in a reference cycle)."""
+    import gc
+
+    import torch
+
+    cuda = dev.type == "cuda"
+    base = None
+    if cuda:
+        gc.collect()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = track_orbit(cfg, dev, frames, poses, card, DENSE_ORBIT_FRAMES, "dense_orbit")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        print(json.dumps({"phase": "dense_orbit_memory", "card": card,
+                          "allocated_before_bytes": base, "peak_above_bytes": peak,
+                          "peak_above_gib": peak / 2 ** 30}), flush=True)
+        res["peak_memory_bytes"] = peak
+    return res
+
+
+def dense_cli(cfg, dev, card: str, log_dir: str) -> dict:
+    """Phase 10d: the CLI without --fast on phase 4's log with meshing
+    (`-m`, the README's headline run less -od), the dense path frame by
+    frame: 48 poses with ATE < 1 cm, a .pcd with points and a .ply with
+    faces."""
+    from kintinuous_tpu_torch import cli
+    from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
+    from kintinuous_tpu_torch.io.pcd import load_pcd
+    from kintinuous_tpu_torch.io.ply import load_ply
+    from kintinuous_tpu_torch.io.tum import load_trajectory
+
+    base = f"{log_dir}/map_dense"
+    argv = ["-l", f"{log_dir}/walk.klg", "-m", "-o", base, "-c", f"{log_dir}/calib.txt",
+            "-s", str(cfg.volume_size), "--resolution", str(cfg.volume_resolution),
+            "--device", str(dev)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    est_s, est_p = load_trajectory(f"{base}.poses")
+    ate, n = absolute_trajectory_error(*load_trajectory(f"{log_dir}/walk.gt"), est_s, est_p)
+    mesh = load_ply(f"{base}.ply")
+    res = dict(phase="dense_cli", card=card, argv=" ".join(argv[:3]) + " ...", rc=rc,
+               frames=ENGINE_FRAMES, seconds_with_save=seconds, poses=len(est_s),
+               ate_m=ate, matched=n, pcd_points=len(load_pcd(f"{base}.pcd")["points"]),
+               ply_vertices=len(mesh["vertices"]), ply_faces=len(mesh.get("faces", ())),
+               cli_output=[ln.strip() for ln in out.getvalue().replace("\r", "\n")
+                           .splitlines() if ln.strip()][-4:])
+    print(json.dumps(res), flush=True)
+    assert rc == 0 and len(est_s) == ENGINE_FRAMES and n == ENGINE_FRAMES
+    assert ate < 0.01, f"dense CLI ATE {ate * 100:.2f} cm"
+    assert res["pcd_points"] > 0 and res["ply_faces"] > 0, "empty map or mesh"
+    return res
+
+
+def profile_orbit(cfg, dev, frames, card: str, n: int, phase: str = "profile",
+                  warm: int = 8) -> dict:
+    """Where a tracked orbit frame's time goes: `warm` warm-up frames, `n`
     frames timed on the host clock, then `n` more under torch.profiler."""
     import torch
 
@@ -901,14 +1064,16 @@ def profile_orbit(cfg, dev, frames, card: str, n: int) -> dict:
         for i in range(i0, i1):
             tr.process_frame(*frames[pingpong(i, len(frames))], i * 33333)
         tr.flush()
-        torch.cuda.synchronize(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
-    warm = 8
     frames_through(0, warm)
     t0 = time.perf_counter()
     frames_through(warm, warm + n)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         frames_through(warm + n, warm + 2 * n)
@@ -935,7 +1100,7 @@ def profile_orbit(cfg, dev, frames, card: str, n: int) -> dict:
     busy = busy_us / 1e3 if spans else None
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
     res = dict(
-        phase="profile", card=card, frames=n,
+        phase=phase, card=card, frames=n,
         host_ms_per_frame=plain_ms / n,
         traced_host_ms_per_frame=wall_ms / n,
         device_busy_ms_per_frame=busy / n if spans else None,
@@ -955,10 +1120,11 @@ def profile_orbit(cfg, dev, frames, card: str, n: int) -> dict:
 
 def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     """All phases on `dev`; returns the kernel rows with the launch
-    counts of the paths phases 2-9 drive (each engine run is a path)."""
+    counts of the paths phases 2-10 drive (each engine run is a path)."""
     import tempfile
 
     from kintinuous_tpu_torch.backend import native_ops
+    from kintinuous_tpu_torch.config import KintinuousConfig
     from kintinuous_tpu_torch.io.synth import Scene, orbit_trajectory, render_frame
     from kintinuous_tpu_torch.ops.cuda_integrate import band_fusion, free_carve
     from kintinuous_tpu_torch.ops.cuda_raycast import (
@@ -994,16 +1160,17 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     # the slice processor's native library is built before the engine
     # runs, so none of them pays for the build
     native_ops.available()
-    with tempfile.TemporaryDirectory() as d:
-        write_engine_log(cfg, d)
-        # batched and per frame, in the order A B B A, so that a drift of
-        # the host's speed during the phase falls on both alike
-        for path, batched in ENGINE_RUNS:
-            counted(path, engine_cli, cfg, dev, card, d, batched)
-        counted("resume", resume, cfg, dev, walk_poses, walk_frames, card)
-        counted("orbit_rgbd", track_orbit_rgbd, cfg.replace(icp_plus_rgbd=True), dev,
-                frames, poses, card)
-        counted("engine_mesh", engine_mesh, cfg, dev, card, d)
+    log_dir = tempfile.TemporaryDirectory()
+    d = log_dir.name
+    write_engine_log(cfg, d)
+    # batched and per frame, in the order A B B A, so that a drift of
+    # the host's speed during the phase falls on both alike
+    for path, batched in ENGINE_RUNS:
+        counted(path, engine_cli, cfg, dev, card, d, batched)
+    counted("resume", resume, cfg, dev, walk_poses, walk_frames, card)
+    counted("orbit_rgbd", track_orbit_rgbd, cfg.replace(icp_plus_rgbd=True), dev,
+            frames, poses, card)
+    counted("engine_mesh", engine_mesh, cfg, dev, card, d)
     # the probe tool's own entry point at its shapes
     with contextlib.redirect_stdout(io.StringIO()) as out:
         counted("probe_tool", P.main, ["--device", str(dev)])
@@ -1016,6 +1183,21 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     counted("odd_orbit", track_orbit, odd, dev, frames, poses, card, ODD_ORBIT_FRAMES,
             "odd_orbit")
     counted("odd_walk", walk_gt, odd, dev, card, "odd_walk")
+    # the dense path (no --fast): plain PyTorch, none of the kernels
+    dense = KintinuousConfig()
+    assert not dense.fast_mode
+    counted("dense_check", dense_card_vs_cpu, dev, frames, poses, card)
+    counted("dense_orbit", dense_orbit, dense, dev, frames, poses, card)
+    counted("dense_profile", profile_orbit, dense, dev, frames, card, DENSE_TRACE_FRAMES,
+            "dense_profile", 2)
+    counted("dense_walk", walk_gt, dense, dev, card, "dense_walk")
+    counted("dense_cli", dense_cli, dense, dev, card, d)
+    counted("dense_resume", resume, dense, dev, walk_poses, walk_frames, card,
+            "dense_resume")
+    log_dir.cleanup()
+    for path in DENSE_PATHS:
+        launched = {k: n for k, n in by_path[path].items() if n}
+        assert not launched, f"the {path} path launched {launched}"
     for path in ("orbit", "walk", "orbit_rgbd", "engine_mesh") + tuple(
             p for p, _ in ENGINE_RUNS):
         # K1-K4 run on every frame

@@ -15,9 +15,8 @@ import numpy as np
 
 from kintinuous_tpu_torch.config import KintinuousConfig
 from kintinuous_tpu_torch.io.ply import save_ply
-from kintinuous_tpu_torch.ops.blocked import blocked_to_dense
+from kintinuous_tpu_torch.ops.blocked import as_dense
 from kintinuous_tpu_torch.ops.surface_nets import MeshResult, extract_mesh
-from kintinuous_tpu_torch.ops.tsdf import VolumeState
 
 
 @dataclass
@@ -102,12 +101,10 @@ class MeshCollector:
 def mesh_current_volume(tracker, cfg: KintinuousConfig,
                         vertex_capacity: int = 2_000_000,
                         face_capacity: int = 4_000_000) -> MeshPatch:
-    """Surface-nets mesh of the tracker's live volume (global coords)."""
+    """Surface-nets mesh of the tracker's live volume (global coords),
+    blocked (fast mode) or dense."""
     R = cfg.volume_resolution
-    vol = tracker.state.vol
-    dense = VolumeState(tsdf=blocked_to_dense(vol.tsdf), cw=blocked_to_dense(vol.cw),
-                        wrap=vol.wrap, origin=vol.origin)
-    res = extract_mesh(dense, (0, 0, 0), (R, R, R), cfg.voxel_size,
+    res = extract_mesh(as_dense(tracker.state.vol), (0, 0, 0), (R, R, R), cfg.voxel_size,
                        vertex_capacity, face_capacity)
     return patch_from_result(res)
 

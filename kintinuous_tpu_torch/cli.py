@@ -29,13 +29,15 @@ JAX package's (kintinuous_tpu/cli.py):
     -dc                disable colour view-angle weighting
     -o  <basename>     output basename (default "output")
 
-and --fast (the blocked fast path, the only one ported: a run without it
-raises), --resolution, --trunc, --frame-limit, --prior, --profile-dir
-(a torch.profiler chrome trace), --dump-tsdf, --devices (1 only),
---num-processes (1 only), --viz-port (not ported), and --device (cpu to
-run the kernels' plain PyTorch versions; default the CUDA card).
+and --fast (the blocked fast path with the CUDA kernels and batched
+offline dispatch; without it the dense path runs, frame by frame, as
+the JAX CLI's default), --resolution, --trunc, --frame-limit, --prior,
+--profile-dir (a torch.profiler chrome trace), --dump-tsdf, --devices
+(1 only), --num-processes (1 only), --viz-port (not ported), and
+--device (cpu to run the kernels' plain PyTorch versions; default the
+CUDA card).
 
-Usage: python -m kintinuous_tpu_torch.cli -l seq.klg --fast -o map
+Usage: python -m kintinuous_tpu_torch.cli -l seq.klg [--fast] [-m] -o map
 """
 
 from __future__ import annotations
@@ -133,10 +135,6 @@ def _parse(argv):
     for flag, dest, is_set in _UNPORTED:
         if is_set(getattr(a, dest)):
             raise NotImplementedError(f"{flag}: not ported to kintinuous_tpu_torch yet")
-    if not a.fast_mode:
-        raise NotImplementedError(
-            "a run without --fast: the dense path is not ported to "
-            "kintinuous_tpu_torch yet")
     return a
 
 

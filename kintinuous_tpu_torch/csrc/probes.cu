@@ -55,20 +55,38 @@
 // Two rows in flight an SM is best; fewer distinct lines a warp's gather
 // barely matters, so the sort is not worth its code.
 //
-// kt_probe_dma (P2) keeps the one-block-a-row design. Runs on the caller's
-// stream, allocates nothing. -fmad=false keeps t*0.5 + x*0.5 two roundings,
+// P2 (dma_kernel): P1's walk, a warp a row, with the row's corner. Lane l's
+// float4 l + 32m covers the row's floats m*128 + 4l .. +3, whose corner
+// values are img[0, cy+m, cx+4l .. cx+4l+3]: one 8-byte load, 256
+// contiguous bytes a warp for each m. The corners (cy, cx) come 32 rows at
+// a time with the ids; the next row's floats and corner are loaded before
+// this row is stored. A corner off an 8-byte boundary (cx % 4 != 0) takes
+// 2-byte loads in a warp-uniform branch. The first design, one
+// 512-thread block a row, a float and a bf16 a thread, paid the chain id ->
+// row address -> load in each of 15.5 waves of blocks. Tried and timed on
+// an H100 80GB HBM3 at 700 W (the probe tool's inputs, cold L2; the first
+// design 0.0284 ms):
+// - the next row's floats and corner loaded before the current row is
+//   summed: 24 registers live across the loads, 72 bytes spilled at the
+//   64-register budget of 4 blocks an SM (not timed);
+// - this design, the sum first: 64 registers, no spills, 0.0185-0.0187 ms
+//   (P1's walk without corners 0.0175-0.0179 in the same call); with 3
+//   blocks an SM (72 registers) 0.0190; an unaligned cx (2-byte loads)
+//   0.0181.
+//
+// Every kernel runs on the caller's stream and allocates nothing. -fmad=false keeps t*0.5 + x*0.5 two roundings,
 // as PyTorch's plain version computes it; bf16 -> f32 is exact (a 16-bit
 // shift); rows are unique, so the order they are visited in changes no bit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "grid.cuh"
 
 namespace {
 
 constexpr int ROW = 512;  // floats of a (4,128) row
-constexpr int LANES = 128;
 constexpr int kRowVec = ROW / 4;        // float4s of a row
 constexpr int kLaneVec = kRowVec / 32;  // float4s a lane holds of a row
 constexpr int kWarps = 8;               // warps a block of rows_kernel
@@ -139,16 +157,94 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-__global__ void dma_kernel(float* __restrict__ tsdf, const int* __restrict__ ids,
-                           const int* __restrict__ cy, const int* __restrict__ cx,
-                           const __nv_bfloat16* __restrict__ img, int W) {
-  const int i = blockIdx.x, s = threadIdx.x / LANES, l = threadIdx.x % LANES;
-  const float p = __bfloat162float(img[(size_t)(cy[i] + s) * W + cx[i] + l]);
-  tsdf[(size_t)ids[i] * ROW + threadIdx.x] += p;
-}
-
 __device__ __forceinline__ float bf16_bits(unsigned short h) {
   return __uint_as_float((unsigned)h << 16);
+}
+
+// A lane's share of a row's (4,128) corner img[cy+m, cx+4l .. cx+4l+3],
+// m < 4, as four bf16 pairs: the values of its float4s l + 32m.
+struct Corner {
+  uint2 c[kLaneVec];
+};
+
+// base: the corner's first value, img + cy*W + cx. One 8-byte load a plane
+// when base lies on an 8-byte boundary and so does every plane's (W % 4 ==
+// 0); else 2-byte loads. The branch is warp-uniform: base is the row's.
+__device__ __forceinline__ Corner load_corner(const unsigned short* base, int W,
+                                              int lane) {
+  const unsigned short* p = base + 4 * lane;
+  Corner r;
+  if ((W & 3) == 0 && (reinterpret_cast<uintptr_t>(base) & 7) == 0) {
+#pragma unroll
+    for (int m = 0; m < kLaneVec; ++m)
+      r.c[m] = __ldg(reinterpret_cast<const uint2*>(p + (size_t)m * W));
+  } else {
+#pragma unroll
+    for (int m = 0; m < kLaneVec; ++m) {
+      const unsigned short* q = p + (size_t)m * W;
+      r.c[m] = make_uint2((unsigned)__ldg(q) | ((unsigned)__ldg(q + 1) << 16),
+                          (unsigned)__ldg(q + 2) | ((unsigned)__ldg(q + 3) << 16));
+    }
+  }
+  return r;
+}
+
+// the row plus its corner: one exact bf16 -> f32 add a float
+__device__ __forceinline__ void plus_corner(Row& r, const Corner& c) {
+#pragma unroll
+  for (int q = 0; q < kLaneVec; ++q) {
+    r.v[q].x += bf16_bits((unsigned short)(c.c[q].x & 0xffffu));
+    r.v[q].y += bf16_bits((unsigned short)(c.c[q].x >> 16));
+    r.v[q].z += bf16_bits((unsigned short)(c.c[q].y & 0xffffu));
+    r.v[q].w += bf16_bits((unsigned short)(c.c[q].y >> 16));
+  }
+}
+
+__device__ __forceinline__ void store_row(float4* p, const Row& r, int lane) {
+#pragma unroll
+  for (int q = 0; q < kLaneVec; ++q) p[lane + 32 * q] = r.v[q];
+}
+
+// rows_kernel's walk with a corner a row: the ids and corner offsets
+// (cy*W + cx) 32 rows at a time (lane l holds row base + l's). The current
+// row is summed with its corner, then the next row's floats and corner are
+// loaded before the sum is stored (the sum first: 16 registers live across
+// the next row's loads, not 24). Warp-uniform.
+__global__ void __launch_bounds__(kThreads, 4)
+    dma_kernel(float4* __restrict__ tsdf, const int* __restrict__ ids,
+               const int* __restrict__ cy, const int* __restrict__ cx,
+               const unsigned short* __restrict__ img, int W, int k) {
+  const int lane = threadIdx.x & 31;
+  int s, e;
+  warp_share(k, s, e);
+  if (s >= e) return;
+  int b_id = 0, b_off = 0;
+  if (s + lane < e) {
+    b_id = __ldg(ids + s + lane);
+    b_off = __ldg(cy + s + lane) * W + __ldg(cx + s + lane);
+  }
+  int id = __shfl_sync(kAll, b_id, 0);
+  Row cur = load_row(tsdf + (size_t)id * kRowVec, lane);
+  Corner corner = load_corner(img + __shfl_sync(kAll, b_off, 0), W, lane);
+  for (int i = s; i < e; ++i) {
+    plus_corner(cur, corner);
+    const int i1 = i + 1;
+    int nid = 0;
+    Row nxt;
+    if (i1 < e) {
+      const int j = (i1 - s) & 31;
+      if (j == 0 && i1 + lane < e) {
+        b_id = __ldg(ids + i1 + lane);
+        b_off = __ldg(cy + i1 + lane) * W + __ldg(cx + i1 + lane);
+      }
+      nid = __shfl_sync(kAll, b_id, j);
+      nxt = load_row(tsdf + (size_t)nid * kRowVec, lane);
+      corner = load_corner(img + __shfl_sync(kAll, b_off, j), W, lane);
+    }
+    store_row(tsdf + (size_t)id * kRowVec, cur, lane);
+    cur = nxt;
+    id = nid;
+  }
 }
 
 constexpr int kFullThreads = ROW / 2;  // a row a block, two floats a thread
@@ -244,10 +340,12 @@ extern "C" int kt_probe_rows(void* tsdf, const void* ids, const void* n_dev, int
 extern "C" int kt_probe_dma(void* tsdf, const void* ids, const void* cy,
                             const void* cx, const void* img, int k, int W,
                             void* stream) {
+  static int grid_cache[kt::kMaxDevices];
   if (k > 0) {
-    dma_kernel<<<k, ROW, 0, (cudaStream_t)stream>>>(
-        (float*)tsdf, (const int*)ids, (const int*)cy, (const int*)cx,
-        (const __nv_bfloat16*)img, W);
+    dma_kernel<<<row_blocks(dma_kernel, kThreads, kWarps, k, grid_cache),
+                 kThreads, 0, (cudaStream_t)stream>>>(
+        (float4*)tsdf, (const int*)ids, (const int*)cy, (const int*)cx,
+        (const unsigned short*)img, W, k);
   }
   return (int)cudaGetLastError();
 }

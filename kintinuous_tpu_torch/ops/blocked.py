@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from kintinuous_tpu_torch.ops.tsdf import VolumeState
+
 BLOCK = 8
 CELLS = BLOCK ** 3
 
@@ -63,6 +65,15 @@ def blocked_to_dense(arr: torch.Tensor) -> torch.Tensor:
         .permute(0, 3, 1, 4, 2, 5)
         .reshape(R, R, R)
     )
+
+
+def as_dense(vol):
+    """A BlockedVolume unblocked into the dense VolumeState (a fresh
+    copy); a dense VolumeState as it is."""
+    if not isinstance(vol, BlockedVolume):
+        return vol
+    return VolumeState(tsdf=blocked_to_dense(vol.tsdf), cw=blocked_to_dense(vol.cw),
+                       wrap=vol.wrap, origin=vol.origin)
 
 
 # Even axis permutations for the band-leading slab layout:

@@ -1,19 +1,21 @@
 """Mid-run snapshot and resume (port of
-kintinuous_tpu/runtime/checkpoint.py, fast mode).
+kintinuous_tpu/runtime/checkpoint.py).
 
 save_checkpoint / load_checkpoint
-    the tracker: blocked volume, pose and prediction, emitted slices
-    (with their processed payloads), mesh patches, trajectory, stats.
+    the tracker: its volume (blocked in fast mode, dense with its wrap
+    otherwise), pose and prediction, emitted slices (with their
+    processed payloads), mesh patches, trajectory, stats.
 save_engine_checkpoint / load_engine_checkpoint
     the tracker plus the engine's counters and the slice processor's
     pool, for an engine without online deformation.
 
 The file format is the JAX package's: one compressed npz with a JSON
-`__meta__` entry, the cw volume as uint32. A checkpoint written by
-either package loads into the other. The dense bf16 mirror is not
-saved: restore rebuilds it from the volume with `build_mirror` (K5),
-as the JAX package's _rebuild_logical does with build_logical_bf16, for
-a tracker that keeps one (an even block count).
+`__meta__` entry, the cw volume as uint32, and `fast_mode` in the meta,
+which must match the tracker's. A checkpoint written by either package
+loads into the other. The fast step's dense bf16 mirror is not saved:
+restore rebuilds it from the volume with `build_mirror` (K5), as the
+JAX package's _rebuild_logical does with build_logical_bf16, for a
+tracker that keeps one (fast mode, an even block count).
 The RGB-D pyramid is not saved either: a restored tracker keeps the one
 it was built with, as the JAX package's does.
 
@@ -32,6 +34,7 @@ import torch
 from kintinuous_tpu_torch.backend.meshing import MeshPatch
 from kintinuous_tpu_torch.ops.blocked import BlockedVolume
 from kintinuous_tpu_torch.ops.cuda_raycast import build_mirror
+from kintinuous_tpu_torch.ops.tsdf import VolumeState
 from kintinuous_tpu_torch.tracking.tracker import CloudSlice, Tracker
 
 _PROC_KEYS = ("points", "colors", "normals", "weights")
@@ -128,16 +131,17 @@ def _restore_tracker(data, meta, tracker: Tracker) -> Tracker:
     def t(name, dtype=np.float32):
         return torch.from_numpy(np.array(data[name], dtype=dtype)).to(dev)
 
-    vol = BlockedVolume(
+    fast = tracker.cfg.fast_mode
+    vol = (BlockedVolume if fast else VolumeState)(
         tsdf=t("tsdf"),
         cw=torch.from_numpy(np.array(data["cw"], np.uint32).view(np.int32)).to(dev),
         wrap=t("wrap", np.int32), origin=t("origin"),
     )
     R = tracker.cfg.volume_resolution
-    if vol.tsdf.shape != ((R // 8) ** 3, 4, 128):
+    if vol.tsdf.shape != (((R // 8) ** 3, 4, 128) if fast else (R, R, R)):
         raise ValueError(f"checkpoint volume {tuple(vol.tsdf.shape)} does not fit "
                          f"volume_resolution {R}")
-    if bool(vol.wrap.any()):
+    if fast and bool(vol.wrap.any()):
         raise ValueError("the mirror needs a wrap-free volume (wrap == 0)")
     st = tracker.state
     # dc and pw derive from the configuration, and the RGB-D pyramid is

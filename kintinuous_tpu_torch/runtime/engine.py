@@ -5,10 +5,12 @@ The frame loop runs on the caller's thread and feeds the Tracker; its
 slices go through a queue to a SliceProcessor worker thread. At the end
 of the log the tracker emits the FINAL slice, the worker drains its
 queue, and `save` writes the map (`.pcd`), the trajectory (`.poses`,
-TUM) and, with meshing on, the welded whole-map mesh (`.ply`). Offline fast-mode runs take the batched path: an uploader thread
-decodes the log and uploads full batches ahead of the step; the first
-frame runs alone, then batches of cfg.offline_batch_size, then the
-partial tail frame by frame.
+TUM) and, with meshing on, the welded whole-map mesh (`.ply`). Offline
+fast-mode runs take the batched path: an uploader thread decodes the log
+and uploads full batches ahead of the step; the first frame runs alone,
+then batches of cfg.offline_batch_size, then the partial tail frame by
+frame. The dense path (fast_mode off) runs frame by frame, as the JAX
+engine does.
 
 Not ported yet, and raising NotImplementedError rather than running
 something else: online deformation (place recognition, pose graph,

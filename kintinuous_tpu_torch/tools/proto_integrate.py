@@ -123,6 +123,7 @@ def run_dma(tsdf, ids, corners, img, img2) -> None:
         return
     cy, cx = corners
     K.require_cuda("run_dma", tsdf, ids, cy, cx, img)
+    K.require_cuda("run_dma", tsdf, align=16)  # float4 rows
     if ids.shape[0] == 0:
         return
     K.check(_lib().kt_probe_dma(tsdf.data_ptr(), ids.data_ptr(), cy.data_ptr(),

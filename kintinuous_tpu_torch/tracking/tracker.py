@@ -1,22 +1,33 @@
-"""The fast tracker step (port of the fast-mode parts of
-kintinuous_tpu/tracking/tracker.py: TrackerState, StepOutputs,
-CloudSlice, make_step_fast, Tracker with its per-frame and batched
-paths).
+"""The tracker steps (port of kintinuous_tpu/tracking/tracker.py:
+TrackerState, StepOutputs, CloudSlice, make_step, make_step_fast, and
+Tracker with its per-frame and batched paths).
 
-One frame: bilateral filter, metres, half-resolution pyramids, ICP or
-fused ICP+RGB-D odometry (or an external delta), the shift decision with
-band extraction (and, with meshing on, the band's surface-nets mesh) and
-the roll of the blocked volume, block-classified fusion with the mirror
+The fast step (`make_step_fast`, fast_mode on), one frame: bilateral
+filter, metres, half-resolution pyramids, ICP or fused ICP+RGB-D
+odometry (or an external delta), the shift decision with band
+extraction (and, with meshing on, the band's surface-nets mesh) and the
+roll of the blocked volume, block-classified fusion with the mirror
 refresh, and the warm-started raycast that predicts the next frame's
 maps. The volume and the mirror are updated in place; the RGB-D pyramid
 of the frame is carried to the next one in the state. A volume with an
 odd number of blocks an edge keeps no mirror (`keeps_mirror`): the
 raycast rebuilds it from the volume every frame.
 
-The shift decision is the step's only host synchronisation: `jax.lax.
-cond` on the shift becomes a Python `if` on one host read of the three
-shift counts, after odometry. A static-mode step (no shifts) reads
-nothing. The stages run inside torch.profiler ranges (kt.preprocess,
+The dense step (`make_step`, fast_mode off: the JAX CLI's default, a
+run without --fast): full-resolution pyramids and odometry against a
+full-resolution prediction, the shift with band extraction (and band
+meshes) from the dense rolling volume, whose recycled bands are cleared
+(one masked pass an axis that moved) and which is re-addressed by its
+wrap, then the dense `integrate` and
+`raycast` (ops/tsdf.py, ops/raycast.py). The JAX package reaches no
+Pallas kernel there, and the port no CUDA kernel: it is plain PyTorch.
+The volume is updated in place.
+
+The shift decision is the fast step's only host synchronisation:
+`jax.lax.cond` on the shift becomes a Python `if` on one host read of
+the three shift counts, after odometry; a static-mode step reads
+nothing. The dense step reads the shift the same way, and its raycast
+reads every 32 march steps whether a ray is still marching. The stages run inside torch.profiler ranges (kt.preprocess,
 kt.odometry, kt.shift, kt.integrate, kt.raycast) that a trace can sum.
 Outputs are consumed one frame late, so downloading poses and slices
 overlaps the next device work.
@@ -50,7 +61,7 @@ from kintinuous_tpu_torch.ops.blocked import (
     VIEW_AXES,
     VIEW_INV,
     BlockedVolume,
-    blocked_to_dense,
+    as_dense,
     make_blocked_volume,
     shift_roll_clear,
     slab_to_dense,
@@ -58,13 +69,14 @@ from kintinuous_tpu_torch.ops.blocked import (
 from kintinuous_tpu_torch.ops.cuda_integrate import integrate_cuda
 from kintinuous_tpu_torch.ops.cuda_raycast import raycast_cuda
 from kintinuous_tpu_torch.ops.extract import extract_points, extract_points_packed
+from kintinuous_tpu_torch.ops.raycast import raycast
 from kintinuous_tpu_torch.ops.rgbd import (
     RGBDFramePyramid,
     build_rgbd_pyramid,
     rgbd_icp_odometry,
 )
 from kintinuous_tpu_torch.ops.surface_nets import extract_mesh
-from kintinuous_tpu_torch.ops.tsdf import VolumeState
+from kintinuous_tpu_torch.ops.tsdf import VolumeState, clear_band, integrate, make_volume
 from kintinuous_tpu_torch.tracking.odometry import (
     build_map_pyramid,
     icp_odometry,
@@ -73,9 +85,9 @@ from kintinuous_tpu_torch.tracking.odometry import (
 
 
 class TrackerState(NamedTuple):
-    vol: BlockedVolume
+    vol: BlockedVolume  # the fast step's; the dense step's is a VolumeState
     pose: torch.Tensor  # (4,4) camera -> local volume
-    pred_vmap: torch.Tensor  # (3,h,w) raycast prediction, local frame
+    pred_vmap: torch.Tensor  # (3,h,w) raycast prediction, local frame (dense: (3,H,W))
     pred_nmap: torch.Tensor  # (3,h,w)
     pred_pose: torch.Tensor  # (4,4) pose the prediction was cast from
     frame: torch.Tensor  # () i32
@@ -120,14 +132,6 @@ _AXIS_DIM = {
 }
 
 
-def check_supported(cfg: KintinuousConfig) -> None:
-    """This port covers the fast step (ICP, RGB-D or ground-truth
-    odometry, meshing on or off); the dense path raises instead of
-    running something else."""
-    if not cfg.fast_mode:
-        raise NotImplementedError("the port runs fast_mode=True only")
-
-
 def keeps_mirror(cfg: KintinuousConfig) -> bool:
     """Whether the step keeps the dense bf16 mirror current (K3): only
     with an even number of blocks an edge, as the refresh works on
@@ -137,9 +141,10 @@ def keeps_mirror(cfg: KintinuousConfig) -> bool:
     return (cfg.volume_resolution // 8) % 2 == 0
 
 
-def preprocess_frame(cfg: KintinuousConfig, depth_raw, rgb_raw):
+def preprocess_frame(cfg: KintinuousConfig, depth_raw, rgb_raw, half: bool = True):
     """Raw depth (mm) and rgb -> (bilateral-filtered depth in metres,
-    rgb f32, half-resolution depth, per-pixel colour fusion weight)."""
+    rgb f32, half-resolution depth (None unless half), per-pixel colour
+    fusion weight)."""
     depth_m = pp.depth_to_metres(
         pp.bilateral_filter(
             depth_raw.to(torch.float32), cfg.bilateral_sigma_depth,
@@ -147,7 +152,7 @@ def preprocess_frame(cfg: KintinuousConfig, depth_raw, rgb_raw):
         ),
         cfg.max_depth,
     )
-    depth_half = pp.pyr_down_depth(depth_m, sigma=0.09)
+    depth_half = pp.pyr_down_depth(depth_m, sigma=0.09) if half else None
     disc = pp.depth_discontinuity_mask(
         depth_m, radius=3, jump_m=cfg.depth_discontinuity_mm * 1e-3
     )
@@ -157,12 +162,149 @@ def preprocess_frame(cfg: KintinuousConfig, depth_raw, rgb_raw):
     return depth_m, rgb_raw.to(torch.float32), depth_half, color_w
 
 
+def _shift_of(cfg: KintinuousConfig, pose: torch.Tensor, dc: torch.Tensor):
+    """(3,) i32 voxel shift [x,y,z] of the volume: +-voxel_shift on an
+    axis where the anchor (the camera, moved dc down its optical axis
+    with -dc) is voxel_shift voxels or more from the volume's centre."""
+    thresh = cfg.voxel_shift * cfg.voxel_size
+    off = pose[:3, 3] + pose[:3, 2] * dc - cfg.volume_size / 2.0
+    S = cfg.voxel_shift
+    return torch.where(off >= thresh, S, torch.where(off <= -thresh, -S, 0)).to(torch.int32)
+
+
+def _odometry(cfg, cam, levels, iters, state, curr_pyr, curr_rgbd, reassoc_icp: int):
+    """ICP, RGB-D or fused odometry of the current pyramids against the
+    state's prediction (or, with -r/-ftf, its previous RGB-D frame):
+    (T_curr_to_prev, inliers, residual)."""
+    use_rgbd = cfg.rgbd_odometry or cfg.icp_plus_rgbd
+    # the fused solve's ICP term against the raycast prediction (-ri);
+    # RGB-D alone (-r) and frame-to-frame RGB-D (-ftf) drop it
+    rgbd_icp = cfg.icp_plus_rgbd and not cfg.frame_to_frame_rgbd
+    pred_pyr = None
+    if rgbd_icp or not use_rgbd:
+        Tinv = se3.inverse(state.pred_pose)
+        Rm, tm = Tinv[:3, :3], Tinv[:3, 3]
+        pv = torch.einsum("ij,jhw->ihw", Rm, state.pred_vmap) + tm[:, None, None]
+        pn = torch.einsum("ij,jhw->ihw", Rm, state.pred_nmap)
+        pred_pyr = pyramid_from_maps(pv, pn, levels)
+    eye = torch.eye(4, dtype=torch.float32, device=state.pose.device)
+    T0 = torch.where(state.pw > 0, state.prev_delta, eye)
+    if use_rgbd:
+        # the count is the RGB inlier count here
+        return rgbd_icp_odometry(
+            cam, curr_pyr, curr_rgbd, state.rgbd, pred_pyr, iters,
+            icp_weight=cfg.rgbd_icp_weight, dist_thresh=cfg.icp_dist_thresh,
+            angle_thresh_deg=cfg.icp_angle_thresh_deg,
+            jump_reject_m=cfg.rgbd_jump_reject, reassoc_every=cfg.icp_reassoc_every,
+            T_init=T0, T_prior=state.prev_delta, prior_weight=state.pw,
+        )
+    return icp_odometry(
+        cam, curr_pyr, pred_pyr, iters, cfg.icp_dist_thresh, cfg.icp_angle_thresh_deg,
+        reassoc_every=reassoc_icp, T_init=T0, T_prior=state.prev_delta,
+        prior_weight=state.pw,
+    )
+
+
+def make_step(cfg: KintinuousConfig, use_odometry: bool):
+    """The dense per-frame step (JAX make_step, tracking/tracker.py:162-
+    359): step(state, depth_raw, rgb_raw, ext_delta) -> (new_state,
+    outputs), as make_step_fast's, on a dense VolumeState updated in
+    place. The shift is read on the host once, after odometry; only the
+    axes that moved extract their band."""
+    cam = cfg.camera
+    R = cfg.volume_resolution
+    vsz = cfg.voxel_size
+    S = cfg.voxel_shift
+    OV = cfg.shift_overlap
+    levels = cfg.pyramid_levels
+    iters = cfg.icp_fast_iterations if cfg.fast_odometry else cfg.icp_iterations
+    use_rgbd = cfg.rgbd_odometry or cfg.icp_plus_rgbd
+    band = {0: (S + OV, R, R), 1: (R, S + OV, R), 2: (R, R, S + OV)}
+
+    def extract_axis(vol, axis: int, s: int):
+        """The leaving band's points and, with meshing on, its mesh."""
+        lo = [0, 0, 0]
+        lo[axis] = 0 if s > 0 else R - S - OV
+        pts = extract_points_packed(vol, lo, band[axis], vsz, cfg.extraction_capacity,
+                                    min_weight=1.0)
+        if not cfg.incremental_mesh:
+            return pts, None
+        return pts, extract_mesh(vol, lo, band[axis], vsz, cfg.mesh_vertex_capacity,
+                                 cfg.mesh_face_capacity)
+
+    def step(state: TrackerState, depth_raw, rgb_raw, ext_delta):
+        dev = depth_raw.device
+        with record_function("kt.preprocess"):
+            depth_m, rgb, _, color_w = preprocess_frame(cfg, depth_raw, rgb_raw, half=False)
+            curr_pyr = build_map_pyramid(cam, depth_m, levels)
+            curr_rgbd = None
+            if use_rgbd:
+                curr_rgbd = build_rgbd_pyramid(pp.rgb_to_intensity(rgb), depth_m, levels)
+
+        with record_function("kt.odometry"):
+            if use_odometry:
+                delta, icp_count, icp_res = _odometry(
+                    cfg, cam, levels, iters, state, curr_pyr, curr_rgbd, reassoc_icp=1)
+            else:
+                delta = ext_delta
+                icp_count = torch.zeros((), dtype=torch.float32, device=dev)
+                icp_res = torch.zeros((), dtype=torch.float32, device=dev)
+            pose = state.pose @ delta
+
+        vol = state.vol
+        slices = (None, None, None)
+        meshes = (None, None, None)
+        shift = torch.zeros(3, dtype=torch.int32, device=dev)
+        if not cfg.static_mode:
+            with record_function("kt.shift"):
+                shift = _shift_of(cfg, pose, state.dc)
+                shift_h = [int(s) for s in shift.cpu()]  # the shift's one host read
+                if any(shift_h):
+                    per_axis = [extract_axis(vol, a, s) if s != 0 else (None, None)
+                                for a, s in enumerate(shift_h)]
+                    slices = tuple(p for p, _ in per_axis)
+                    meshes = tuple(m for _, m in per_axis)
+                    # the recycled bands: logical [0, S) after a + shift,
+                    # [R-S, R) after a - one (JAX tracker.py:295-314)
+                    for axis, s in enumerate(shift_h):
+                        if s:
+                            clear_band(vol, axis, *((0, S) if s > 0 else (R - S, R)))
+                    vol = vol._replace(
+                        wrap=(vol.wrap + shift) % R,
+                        origin=vol.origin + shift.to(torch.float32) * vsz,
+                    )
+                    pose = pose.clone()
+                    pose[:3, 3] -= shift.to(torch.float32) * vsz
+
+        with record_function("kt.integrate"):
+            integrate(vol, cam, depth_m, rgb, color_w, pose, vsz, cfg.trunc_dist,
+                      float(cfg.max_weight))
+        with record_function("kt.raycast"):
+            rc = raycast(vol, cam, pose, vsz, cfg.volume_size, cfg.trunc_dist,
+                         cfg.raycast_step_factor, cfg.raycast_min_range,
+                         cfg.raycast_max_range)
+        pose_global = pose.clone()
+        pose_global[:3, 3] += vol.origin
+        new_state = state._replace(
+            vol=vol, pose=pose, pred_vmap=rc.vmap, pred_nmap=rc.nmap,
+            pred_pose=pose, frame=state.frame + 1, prev_delta=delta, rgbd=curr_rgbd,
+        )
+        out = StepOutputs(
+            pose_local=pose, pose_global=pose_global, shift=shift, slices=slices,
+            icp_count=icp_count, icp_residual=icp_res,
+            raycast_hits=(rc.depth > 0).sum().to(torch.float32),
+            mesh_patches=meshes if cfg.incremental_mesh else (),
+        )
+        return new_state, out
+
+    return step
+
+
 def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
     """The per-frame step: step(state, depth_raw, rgb_raw, ext_delta) ->
     (new_state, outputs). depth_raw (H,W) and rgb_raw (H,W,3) are tensors
     on the state's device; ext_delta (4,4) is used when use_odometry is
     False. The state's volume and mirror are updated in place."""
-    check_supported(cfg)
     cam = cfg.camera
     cam_half = cam.at_level(1)
     R = cfg.volume_resolution
@@ -170,8 +312,6 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
     S = cfg.voxel_shift
     OV = cfg.shift_overlap
     cap = cfg.extraction_capacity
-    center = cfg.volume_size / 2.0
-    shift_thresh = S * vsz
     levels = max(2, cfg.pyramid_levels - 1)
     # schedule shifted one level: fast schedule (0,10,5,0) -> (10,5,0)
     base_iters = cfg.icp_fast_iterations if cfg.fast_odometry else cfg.icp_iterations
@@ -179,9 +319,6 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
     SLAB_B = max(2, -(-(S + OV + 1) // 8))  # block-planes around a band
     B_grid = R // 8
     use_rgbd = cfg.rgbd_odometry or cfg.icp_plus_rgbd
-    # the fused solve's ICP term against the raycast prediction (-ri);
-    # RGB-D alone (-r) and frame-to-frame RGB-D (-ftf) drop it
-    rgbd_icp = cfg.icp_plus_rgbd and not cfg.frame_to_frame_rgbd
 
     def extract_axis(vol, axis: int, s: int):
         """Points of the band leaving along `axis`, from a band-leading
@@ -211,7 +348,6 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
 
     def step(state: TrackerState, depth_raw, rgb_raw, ext_delta):
         dev = depth_raw.device
-        eye = torch.eye(4, dtype=torch.float32, device=dev)
         with record_function("kt.preprocess"):
             depth_m, rgb, depth_half, color_w = preprocess_frame(cfg, depth_raw, rgb_raw)
             curr_pyr = build_map_pyramid(cam_half, depth_half, levels)
@@ -222,32 +358,9 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
 
         with record_function("kt.odometry"):
             if use_odometry:
-                pred_pyr = None
-                if rgbd_icp or not use_rgbd:
-                    Tinv = se3.inverse(state.pred_pose)
-                    Rm, tm = Tinv[:3, :3], Tinv[:3, 3]
-                    pv = torch.einsum("ij,jhw->ihw", Rm, state.pred_vmap) + tm[:, None, None]
-                    pn = torch.einsum("ij,jhw->ihw", Rm, state.pred_nmap)
-                    pred_pyr = pyramid_from_maps(pv, pn, levels)
-                T0 = torch.where(state.pw > 0, state.prev_delta, eye)
-                if use_rgbd:
-                    # icp_count is the RGB inlier count here
-                    delta, icp_count, icp_res = rgbd_icp_odometry(
-                        cam_half, curr_pyr, curr_rgbd, state.rgbd, pred_pyr, iters,
-                        icp_weight=cfg.rgbd_icp_weight,
-                        dist_thresh=cfg.icp_dist_thresh,
-                        angle_thresh_deg=cfg.icp_angle_thresh_deg,
-                        jump_reject_m=cfg.rgbd_jump_reject,
-                        reassoc_every=cfg.icp_reassoc_every,
-                        T_init=T0, T_prior=state.prev_delta, prior_weight=state.pw,
-                    )
-                else:
-                    delta, icp_count, icp_res = icp_odometry(
-                        cam_half, curr_pyr, pred_pyr, iters,
-                        cfg.icp_dist_thresh, cfg.icp_angle_thresh_deg,
-                        reassoc_every=cfg.icp_reassoc_every,
-                        T_init=T0, T_prior=state.prev_delta, prior_weight=state.pw,
-                    )
+                delta, icp_count, icp_res = _odometry(
+                    cfg, cam_half, levels, iters, state, curr_pyr, curr_rgbd,
+                    reassoc_icp=cfg.icp_reassoc_every)
             else:
                 delta = ext_delta
                 icp_count = torch.zeros((), dtype=torch.float32, device=dev)
@@ -261,12 +374,7 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
         shift_any = False
         if not cfg.static_mode:
             with record_function("kt.shift"):
-                anchor = pose[:3, 3] + pose[:3, 2] * state.dc
-                cam_off = anchor - center
-                shift = torch.where(
-                    cam_off >= shift_thresh, S,
-                    torch.where(cam_off <= -shift_thresh, -S, 0),
-                ).to(torch.int32)
+                shift = _shift_of(cfg, pose, state.dc)
                 # the step's one host synchronisation
                 shift_h = [int(s) for s in shift.cpu()]
                 shift_any = any(shift_h)
@@ -316,19 +424,25 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
 
 
 def initial_state(cfg: KintinuousConfig, device) -> TrackerState:
-    """Empty volume and mirror (none with an odd block count), camera at
-    the volume centre, and for RGB-D odometry the pyramid of an all-zero
-    frame."""
-    h, w = cfg.camera.height // 2, cfg.camera.width // 2
+    """Empty volume, camera at the volume centre, NaN predictions, and
+    for RGB-D odometry the pyramid of an all-zero frame. Fast mode: the
+    blocked volume, half-resolution maps and pyramid, and the mirror
+    (none with an odd block count); dense: the dense volume and
+    full-resolution maps and pyramid, no mirror."""
+    fast = cfg.fast_mode
+    h, w = cfg.camera.height, cfg.camera.width
+    levels = cfg.pyramid_levels
+    if fast:
+        h, w, levels = h // 2, w // 2, max(2, levels - 1)
     R = cfg.volume_resolution
     pose = torch.eye(4, dtype=torch.float32, device=device)
     pose[:3, 3] = cfg.volume_size / 2.0
     rgbd = None
     if cfg.rgbd_odometry or cfg.icp_plus_rgbd:
         zero = torch.zeros((h, w), dtype=torch.float32, device=device)
-        rgbd = build_rgbd_pyramid(zero, zero, max(2, cfg.pyramid_levels - 1))
+        rgbd = build_rgbd_pyramid(zero, zero, levels)
     return TrackerState(
-        vol=make_blocked_volume(R, device=device),
+        vol=(make_blocked_volume if fast else make_volume)(R, device=device),
         pose=pose,
         pred_vmap=torch.full((3, h, w), torch.nan, device=device),
         pred_nmap=torch.full((3, h, w), torch.nan, device=device),
@@ -342,7 +456,7 @@ def initial_state(cfg: KintinuousConfig, device) -> TrackerState:
                       device=device),
         # zeros == the mirror of the zero volume
         logical=(torch.zeros((R, R, R), dtype=torch.bfloat16, device=device)
-                 if keeps_mirror(cfg) else None),
+                 if fast and keeps_mirror(cfg) else None),
     )
 
 
@@ -350,7 +464,9 @@ def state_from_numpy(st, device) -> TrackerState:
     """A tracker state given as numpy arrays under the JAX package's
     field names (e.g. its TrackerState after device_get) -> this port's
     state on `device`: tsdf f32, cw u32 as int32 bits, the bf16 mirror
-    through its 16-bit pattern, the RGB-D pyramid level by level."""
+    through its 16-bit pattern, the RGB-D pyramid level by level. A
+    cubic (R,R,R) tsdf is the dense step's volume (a VolumeState), any
+    other the blocked one."""
     dev = resolve_device(device)
 
     def t(x, dtype=np.float32):
@@ -364,8 +480,10 @@ def state_from_numpy(st, device) -> TrackerState:
     rgbd = None
     if st.rgbd is not None:
         rgbd = RGBDFramePyramid(*(tuple(t(x) for x in field) for field in st.rgbd))
+    shape = np.shape(vol.tsdf)
+    dense = len(set(shape)) == 1
     return TrackerState(
-        vol=BlockedVolume(
+        vol=(VolumeState if dense else BlockedVolume)(
             tsdf=t(vol.tsdf),
             cw=torch.from_numpy(
                 np.array(vol.cw, dtype=np.uint32).view(np.int32)).to(dev),
@@ -410,11 +528,11 @@ class Tracker:
     def __init__(self, cfg: KintinuousConfig, device=None,
                  slice_callback: Optional[Callable[[CloudSlice], None]] = None,
                  mesh_callback: Optional[Callable[[MeshPatch], None]] = None):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._step_odom = make_step_fast(cfg, use_odometry=True)
-        self._step_ext = make_step_fast(cfg, use_odometry=False)
+        make = make_step_fast if cfg.fast_mode else make_step
+        self._step_odom = make(cfg, use_odometry=True)
+        self._step_ext = make(cfg, use_odometry=False)
         self.state = initial_state(cfg, self.device)
         self._pending: deque = deque()  # (out, timestamp_us, frame_idx)
         self.slices: List[CloudSlice] = []
@@ -470,7 +588,10 @@ class Tracker:
         """Batched offline path: frames is a list of (depth_u16 (H,W),
         rgb_u8 (H,W,3) or None, timestamp_us). The first frame of a run
         goes through process_frame (identity delta); the rest run as one
-        batch with odometry on every frame."""
+        batch with odometry on every frame. Fast mode only, as in the JAX
+        package."""
+        if not self.cfg.fast_mode:
+            raise ValueError("the batched path needs fast_mode")
         while frames and self._frame_idx == 0:
             self.process_frame(*frames[0])
             frames = frames[1:]
@@ -493,6 +614,8 @@ class Tracker:
         """A batch of uploaded frames (depths (B,H,W), rgbs (B,H,W,3) on
         the device): the per-frame step with odometry on each, outputs
         consumed one frame late as in process_frame."""
+        if not self.cfg.fast_mode:
+            raise ValueError("the batched path needs fast_mode")
         if self._frame_idx == 0:
             raise ValueError("the first frame must go through process_frame")
         for d, c, ts in zip(depths, rgbs, ts_list):
@@ -568,10 +691,7 @@ class Tracker:
         self.flush()
         cfg = self.cfg
         R = cfg.volume_resolution
-        vol = self.state.vol
-        dense = VolumeState(tsdf=blocked_to_dense(vol.tsdf),
-                            cw=blocked_to_dense(vol.cw), wrap=vol.wrap,
-                            origin=vol.origin)
+        dense = as_dense(self.state.vol)
         res = extract_points(dense, (0, 0, 0), (R, R, R), cfg.voxel_size,
                              cfg.extraction_capacity)
         cnt = int(res.count)

@@ -284,23 +284,25 @@ def test_batched_step_on_the_card_follows_the_cpu(card):
 
 
 @pytest.mark.parametrize("probe", ["rows", "dma", "full", "dyn", "rows_0", "rows_1",
-                                   "rows_301", "full_0", "full_1", "full_301", "dyn_n0",
+                                   "rows_301", "dma_0", "dma_1", "dma_301", "dma_cx1",
+                                   "full_0", "full_1", "full_301", "dyn_n0",
                                    "dyn_nk", "dyn_nk5"])
 def test_probe_kernels_are_bit_exact(card, probe):
     """P1-P4 at the probe tool's shapes: bit-equal to their plain
-    versions, each call counted. P1 and P3 also over 0, 1 and 301 rows
-    (301 is no multiple of a block's warps), P4 with n = 0, k and k + 5
-    (the count clamped to [0, k])."""
+    versions, each call counted. P1, P2 and P3 also over 0, 1 and 301
+    rows (301 is no multiple of a block's warps), P2 with every corner
+    one column right (cx % 4 == 1: 2-byte loads), P4 with n = 0, k and
+    k + 5 (the count clamped to [0, k])."""
     from kintinuous_tpu_torch.tools import proto_integrate as P
 
     x = P.make_inputs(card)
     name, _, edge = probe.partition("_")
     m = P.N_K
-    if name in ("rows", "full") and edge:
+    if name in ("rows", "dma", "full") and edge.isdigit():
         m = int(edge)
     n_dyn = {"": P.N_DYN, "n0": 0, "nk": P.N_K, "nk5": P.N_K + 5}[edge if name == "dyn" else ""]
     n = torch.tensor(n_dyn, dtype=torch.int32, device=card)
-    ids, corners = x.ids[:m], (x.cy[:m], x.cx[:m])
+    ids, corners = x.ids[:m], (x.cy[:m], x.cx[:m] + (1 if edge == "cx1" else 0))
     kernel, plain, args = {
         "rows": (P.run_rows, P.run_rows_plain, (ids,)),
         "dma": (P.run_dma, P.run_dma_plain, (ids, corners, x.img, x.img2)),
@@ -396,3 +398,51 @@ def test_meshing_tracker_on_the_card_follows_the_cpu(card):
         vb = dict(zip(map(tuple, b.cells), b.vertices))
         d = max(np.abs(va[tuple(c)] - vb[tuple(c)]).max() for c in common)
         assert d <= 1e-4, d
+
+
+def test_dense_frame_on_the_card_follows_the_cpu(card):
+    """The dense path (no fast_mode) at R=64: three ground-truth frames on
+    the card, then one frame's integrate and raycast on the card and on
+    the CPU from the same state: tsdf within 2e-5, weights equal, colour
+    within 1, hit flips at most 0.1 %, depth within 1e-4 and normals
+    within 1e-3 where both hit (the CPU tests' tolerances against JAX);
+    none of the kernels launched."""
+    from kintinuous_tpu_torch.ops.raycast import raycast
+    from kintinuous_tpu_torch.ops.tsdf import VolumeState, integrate
+
+    cfg = cfg_small().replace(fast_mode=False, volume_size=3.0, volume_resolution=64)
+    poses = orbit_trajectory(4, radius=0.06, angle_deg=3.0)
+    frames = [render_frame(Scene.default(), CAM, T) for T in poses]
+    counts = [w.launches for w in (band_fusion, free_carve, mirror_refresh, build_mirror,
+                                   tile_raycast)]
+    tr = Tracker(cfg, device=card)
+    for i in range(3):
+        delta = np.eye(4) if i == 0 else np.linalg.inv(poses[i - 1]) @ poses[i]
+        tr.process_frame(*frames[i], i * 33333, ext_delta=delta.astype(np.float32))
+    tr.flush()
+    st = tr.state
+    T = st.pose @ torch.from_numpy(
+        (np.linalg.inv(poses[2]) @ poses[3]).astype(np.float32)).to(card)
+    d, c = (torch.from_numpy(np.asarray(x)).to(card) for x in frames[3])
+    depth_m, rgb, _, color_w = preprocess_frame(cfg, d, c, half=False)
+    res = []
+    for dev in (card, torch.device("cpu")):
+        vol = VolumeState(*(x.to(dev, copy=True) for x in st.vol))
+        dm, cc, cw, Tw = (x.to(dev) for x in (depth_m, rgb, color_w, T))
+        integrate(vol, CAM, dm, cc, cw, Tw, cfg.voxel_size, cfg.trunc_dist)
+        res.append((vol, raycast(vol, CAM, Tw, cfg.voxel_size, cfg.volume_size,
+                                 cfg.trunc_dist)))
+    (vk, rk), (vc, rc) = res
+    ck = vk.cw.cpu()
+    assert (vk.tsdf.cpu() - vc.tsdf).abs().max() <= 2e-5
+    assert torch.equal((ck >> 24) & 0xFF, (vc.cw >> 24) & 0xFF)
+    for s in (0, 8, 16):
+        assert (((ck >> s) & 0xFF) - ((vc.cw >> s) & 0xFF)).abs().max() <= 1
+    hk, hc = rk.depth.cpu() > 0, rc.depth > 0
+    both = hk & hc
+    assert int(hc.sum()) > 0.5 * hc.numel()
+    assert float((hk != hc).float().mean()) <= 1e-3
+    assert (rk.depth.cpu() - rc.depth)[both].abs().max() <= 1e-4
+    assert (rk.nmap.cpu() - rc.nmap)[:, both].abs().max() <= 1e-3
+    assert counts == [w.launches for w in (band_fusion, free_carve, mirror_refresh,
+                                           build_mirror, tile_raycast)]

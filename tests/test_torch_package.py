@@ -126,15 +126,13 @@ def test_tracker_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What is still unported raises, naming it: the dense path (a
-    tracker without fast_mode), online deformation (-od), live capture
-    (-live), the web viewer (--viz-port) and several devices."""
+    """What is still unported raises, naming it: online deformation
+    (-od), live capture (-live), the web viewer (--viz-port) and several
+    devices."""
     from kintinuous_tpu_torch import cli
     from kintinuous_tpu_torch.runtime.engine import SlamEngine
     from kintinuous_tpu_torch.tracking.tracker import Tracker
 
-    with pytest.raises(NotImplementedError, match="fast_mode"):
-        Tracker(pcfg.tiny_test_config(fast_mode=False), device="cpu")
     for kw, name in (({"online_deformation": True}, "online_deformation"),
                      ({"live_source": "tcp://localhost:1"}, "live_source"),
                      ({"devices": 2}, "devices")):

@@ -121,16 +121,15 @@ def test_cli_fast_run_writes_the_poses(seq, tmp_path):  # noqa: F811
 
 
 @pytest.mark.parametrize("flags,names", [
-    (["-od"], "-od"), (["-m", "-od"], "-od"), ([], "--fast"),
+    (["-od"], "-od"), (["-m", "-od"], "-od"),
     (["-live", "tcp://localhost:1"], "-live"), (["--viz-port", "8000"], "--viz-port"),
     (["--devices", "2"], "--devices"), (["--num-processes", "2"], "--num-processes")],
-    ids=["od", "m_with_od", "no_fast", "live", "viz", "devices", "num_processes"])
+    ids=["od", "m_with_od", "live", "viz", "devices", "num_processes"])
 def test_cli_unported_flags_raise(flags, names):
     """What the port does not run yet raises, naming the flag: -m with -od
     (the deformed mesh) names -od."""
-    fast = [] if flags == [] else ["--fast"]
     with pytest.raises(NotImplementedError, match=names):
-        cli.build_config(["-l", "seq.klg", *fast, *flags])
+        cli.build_config(["-l", "seq.klg", "--fast", *flags])
 
 
 @pytest.mark.parametrize("flag,field", [("-r", "rgbd_odometry"), ("-ri", "icp_plus_rgbd"),
