@@ -59,20 +59,52 @@ prediction, 16-voxel shifts, ICP odometry):
      points); (d) the CLI with `-m` and no --fast on phase 4's log (ATE <
      1 cm, a .pcd with points, a .ply with faces); (e) phase 5's resume
      (tsdf, cw, wrap and origin bit-equal, poses within 1e-5);
+ 11. online deformation (-od) on bench C's pivot lap (bench.py:164-209,
+     274-340): `lap_scene(3.2, 2.4)` and its 419-frame `lap_trajectory`
+     with 6 mm depth noise, rendered at 640x480 on every core before
+     phase 1 (io/synth.render_frames), its colour written uncompressed
+     (the card's machine has no JPEG codec: io/klg._decode_rgb is
+     replaced in this process by a reshape of the raw bytes), through
+     the CLI in process, batched, at config A with its dynamic cube:
+     `--fast -fod -t 16 -d -dc -ri -od -m -lt 0 --prior 0.01`. 419
+     poses, shifts, at least one loop accepted, every accepted loop
+     genuine (eval/loop_gate), a `_opt.pcd` with points and a `_opt.ply`
+     with faces; the ORB, the dense loop refinement, the pose graph's
+     and the deformation graph's GN ran on the card; the card against
+     the CPU on the ORB of one lap frame (the same keypoints,
+     descriptors equal on >= 99 % of bits), the run's last loop
+     refinement (within 1e-4 m and 1e-3 degrees), the final pose graph
+     (poses within 1e-4), the final deformation
+     graph's apply (1e-4 m) and its last solve (no farther from the
+     CPU's than the CPU's float32 solve from its float64 one, plus 1e-4
+     m); an -od engine checkpoint restored into a fresh engine equal in
+     its graphs, keyframe ring and vocabulary; then the run's pose graph
+     rebuilt with its accepted loops' relative poses taken from the
+     ground truth must end below the pre-loop ATE, and the final ATE
+     (the `.poses` after deformation) must too. Prints the ATEs, the
+     rebuilt graph's ATE with the measured and with exact loops, each
+     loop attempt's error against the ground truth, loops, the
+     place-recognition gates, the gate's precision and recall against
+     the ground truth (eval/loop_gate), keyframes taken and dropped, the
+     PlaceRecognition and Deformation span means, the ORB's ms for each
+     keyframe and the refinement's for each loop, fps and peak device
+     memory;
 
-and checks that each run of phases 2-4, 6 and 7 launched K1-K4, phase 5
-the rebuild, phase 8 the four probes, phase 9 K1, K2, K4 and K5 once a
-frame and K3 never, and phase 10 no kernel, with the counts set to 0
-before each path.
+and checks that each run of phases 2-4, 6, 7 and 11 launched K1-K4,
+phase 5 the rebuild, phase 8 the four probes, phase 9 K1, K2, K4 and K5
+once a frame and K3 never, and phase 10 no kernel, with the counts set
+to 0 before each path.
 `--trace FRAMES`
 then profiles that many further orbit frames (where a frame's time
 goes: host ms untraced and traced, device busy ms and idle share, host
 ms per step stage, kernel launches, the kernels with the most device
 time). Prints one JSON line per kernel, the card's name and power
 limit, one {"kernels": [...]} line, and last {"ok": true, "device":
-{...}}. Any failed check raises, so the exit code is non-zero; without
-a CUDA card, or outside the repository, the script exits non-zero
-before printing any result.
+{...}}. A failed check raises, except phase 11's two ATE checks, which
+are reported after the kernel line; either way the exit code is
+non-zero and the last line is not printed. Without a CUDA card, or
+outside the repository, the script exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -122,6 +154,23 @@ STAGES = ("kt.preprocess", "kt.odometry", "kt.shift", "kt.integrate", "kt.raycas
 
 
 ORBIT_RGBD_FRAMES = 96  # phase 6, config B
+# phase 11: bench C's pivot lap (bench.py:184-198)
+LAP_KW = dict(length=3.2, depth=2.4, step=0.055, turn_frames=26, warmup_frames=10,
+              revisit_frac=0.35)
+LAP_FRAMES = 419
+LAP_NOISE_MM = 6.0
+ORB_CHECK_FRAME = 100  # the lap frame of phase 11's ORB check
+# checks that failed in a phase whose later checks and readings still
+# run; main prints the kernel line, then exits non-zero
+FAILED: list = []
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+        FAILED.append(msg)
+
+
 # (window, newton) pairs outside ops/cuda_raycast.RAYCAST_PAIRS: the
 # raycast kernel's run-time loops (phase 1)
 RUNTIME_PAIRS = ((5, 3), (3, 1), (7, 2))
@@ -1118,32 +1167,409 @@ def profile_orbit(cfg, dev, frames, card: str, n: int, phase: str = "profile",
     return res
 
 
+# ------------------------------------------------------------- phase 11
+
+class LapLog:
+    """Phase 11's input: bench C's lap (`lap_scene(3.2, 2.4)`,
+    `lap_trajectory(**LAP_KW)`, 6 mm depth noise) at the camera's width,
+    rendered by io/synth.render_frames over a pool of one process a core
+    into a .klg, before any timed phase runs. The card's machine has no
+    JPEG codec, so the colour is written uncompressed
+    (io/klg._encode_rgb is replaced by the raw bytes while the log is
+    written; phase 11 reads them back with a reshape in place of
+    io/klg._decode_rgb)."""
+
+    def __init__(self, cam, log_dir: str):
+        import multiprocessing
+
+        from kintinuous_tpu_torch.io import klg
+        from kintinuous_tpu_torch.io.synth import lap_scene, lap_trajectory, render_frames
+        from kintinuous_tpu_torch.io.tum import save_trajectory
+
+        self.path, self.gt = f"{log_dir}/lap.klg", f"{log_dir}/lap.gt"
+        self.poses = lap_trajectory(**LAP_KW)
+        t0 = time.perf_counter()
+        encode = klg._encode_rgb
+        klg._encode_rgb = lambda rgb, quality=90: np.ascontiguousarray(rgb).tobytes()
+        try:
+            with multiprocessing.get_context("spawn").Pool(os.cpu_count()) as pool, \
+                    klg.KlgLogWriter(self.path) as w:
+                frames = render_frames(cam, self.poses,
+                                       lap_scene(LAP_KW["length"], LAP_KW["depth"]),
+                                       LAP_NOISE_MM, lambda f, it: pool.imap(f, it, chunksize=2))
+                for i, (depth, rgb) in enumerate(frames):
+                    w.write(int(i * 1e6 / 30.0), depth, rgb)
+        finally:
+            klg._encode_rgb = encode
+        save_trajectory(self.gt, [i / 30.0 for i in range(len(self.poses))], self.poses)
+        self.seconds = time.perf_counter() - t0
+
+
+def _same_backend(a, b) -> dict:
+    """Which -od fields of two engines are equal: pose graph, deformation
+    graph, map-deformation bookkeeping, keyframe ring, vocabulary."""
+    ga, gb, da, db = a.deformation.graph, b.deformation.graph, a.deformation.dgraph, \
+        b.deformation.dgraph
+    pa, pb = a.place_rec, b.place_rec
+    return {
+        "pose_graph": (ga.times == gb.times and ga._fi == gb._fi and ga._fj == gb._fj
+                       and ga._fw == gb._fw and ga._floop == gb._floop
+                       and np.array_equal(np.array(ga.poses), np.array(gb.poses))
+                       and np.array_equal(np.array(ga._fZ), np.array(gb._fZ))),
+        "deformation_graph": (da.times == db.times
+                              and np.array_equal(np.array(da.g), np.array(db.g))
+                              and np.array_equal(da.A, db.A) and np.array_equal(da.t, db.t)),
+        "map_deformation": ((a.deformation.n_loops_accepted, a.deformation.n_loops_rejected,
+                             len(a.deformation.slices), len(a.deformation.mesh_patches),
+                             sorted(a.deformation._raw_pose))
+                            == (b.deformation.n_loops_accepted, b.deformation.n_loops_rejected,
+                                len(b.deformation.slices), len(b.deformation.mesh_patches),
+                                sorted(b.deformation._raw_pose))),
+        "keyframes": (len(pa.keyframes) == len(pb.keyframes) and all(
+            (x.kf_id, x.timestamp_us, x.depth_z, x.rgb_jpg) == (y.kf_id, y.timestamp_us,
+                                                                 y.depth_z, y.rgb_jpg)
+            and np.array_equal(x.descriptors, y.descriptors)
+            and np.array_equal(x.keypoints, y.keypoints)
+            and np.array_equal(x.points3d, y.points3d, equal_nan=True)
+            and np.array_equal(x.pose, y.pose)
+            for x, y in zip(pa.keyframes, pb.keyframes))
+            and (pa._next_kf_id, pa._last_loop_time_us) == (pb._next_kf_id,
+                                                            pb._last_loop_time_us)),
+        "vocabulary": np.array_equal(pa.vocab.centroids, pb.vocab.centroids),
+    }
+
+
+def od_card_vs_cpu(engine, seen: dict, dev, frame_rgb) -> dict:
+    """The -od backend on the card against the CPU: the ORB on one lap
+    frame (the same keypoints; descriptors equal on >= 99 % of bits), the
+    run's last dense loop refinement redone on both (within 1e-4 m and
+    1e-3 degrees), the run's final pose graph optimised 10 more iterations (poses within
+    1e-4), the final deformation graph applied to the deformed map
+    (within 1e-4 m), and the run's last deformation solve redone from
+    its inputs: the card's float32 answer may lie no farther from the
+    CPU's than the CPU's float32 answer lies from its float64 one, plus
+    1e-4 m (the solve's CG leaves weakly constrained directions where
+    rounding puts them)."""
+    import copy
+
+    import torch
+
+    from kintinuous_tpu_torch.backend import deformation as dgmod
+    from kintinuous_tpu_torch.backend import place_recognition as prmod
+    from kintinuous_tpu_torch.backend.features import orb_keypoints, rgb_to_gray
+
+    cpu = torch.device("cpu")
+    rgb = torch.from_numpy(frame_rgb)
+    k, c = orb_keypoints(rgb_to_gray(rgb.to(dev))), orb_keypoints(rgb_to_gray(rgb))
+    same_kp = torch.equal(k["pts"].cpu(), c["pts"]) and torch.equal(k["octave"].cpu(),
+                                                                      c["octave"])
+    bits_equal = 1.0 - float(np.unpackbits(k["desc"].cpu().numpy() ^ c["desc"].numpy()).mean()) \
+        if same_kp else 0.0
+    refine_m = refine_deg = float("inf")  # no loop reached the refinement
+    if seen["refine_last"] is not None:
+        cfg_, d1, d2, T0, a = seen["refine_last"]
+        E = np.linalg.inv(prmod.refine_loop(cfg_, d1, d2, T0, dev, *a)[0]) \
+            @ prmod.refine_loop(cfg_, d1, d2, T0, cpu, *a)[0]
+        refine_m = float(np.linalg.norm(E[:3, 3]))
+        refine_deg = float(np.degrees(np.arccos(np.clip((np.trace(E[:3, :3]) - 1) / 2, -1, 1))))
+    md = engine.deformation
+    pg_cpu = copy.copy(md.graph)
+    pg_cpu.device = cpu
+    pk, ck = md.graph.solve(10)
+    pc, cc = pg_cpu.solve(10)
+    pg_diff = float((pk.cpu() - pc).abs().max())
+    dg = md.dgraph
+    pts = np.concatenate([s.processed["points"] for s in md.slices])[::7].astype(np.float64)
+    ts = np.concatenate([np.full(len(s.processed["points"]), s.timestamp_us)
+                         for s in md.slices])[::7]
+    bind = dg.bind(pts, ts)
+    applied_k = dg.apply(pts, bind)
+    dg_cpu = copy.copy(dg)
+    dg_cpu.device = cpu
+    apply_diff = float(np.abs(applied_k - dg_cpu.apply(pts, bind)).max())
+    # the last solve, redone from its inputs; each answer applied to its
+    # constraints' source points
+    *inputs, iters = seen["dg_last"]
+    sols = {}
+    for name, d, dt in (("card", dev, torch.float32), ("cpu", cpu, torch.float32),
+                        ("cpu_f64", cpu, torch.float64)):
+        A, t, g, e_j, e_k, c_v, c_q, c_ids, c_w, c_on = (
+            x.to(d, dt) if x.is_floating_point() else x.to(d) for x in inputs)
+        Ai, ti, _ = dgmod.gn_core(A, t, g, e_j, e_k, c_v, c_q, c_ids, c_w, c_on, iters)
+        sols[name] = dgmod.deform(Ai, ti, g, c_v, c_ids, c_w).double().cpu().numpy()
+    solve_diff = float(np.abs(sols["card"] - sols["cpu"]).max())
+    f32_spread = float(np.abs(sols["cpu"] - sols["cpu_f64"]).max())
+    return dict(orb_keypoints=len(c["pts"]), orb_same_keypoints=same_kp,
+                orb_descriptor_bits_equal=bits_equal, refine_max_diff_m=refine_m,
+                refine_max_diff_deg=refine_deg, pose_graph_nodes=len(md.graph.poses),
+                pose_graph_max_diff=pg_diff, pose_graph_chi2=(float(ck), float(cc)),
+                deform_apply_points=len(pts), deform_apply_max_diff_m=apply_diff,
+                deform_solve_constraints=len(sols["cpu"]), deform_solve_max_diff_m=solve_diff, deform_solve_f32_vs_f64_cpu_m=f32_spread)
+
+
+def _true_relative(gs, gp, e) -> np.ndarray:
+    """The ground truth's pose of a loop's second keyframe in its first's."""
+    P1, P2 = (gp[int(np.argmin(np.abs(np.asarray(gs) - e[k] / 1e6)))]
+              for k in ("kf_t1", "kf_t2"))
+    return np.linalg.inv(P1) @ P2
+
+
+def replay_loops(tr, md, gs, gp, dev, exact: bool) -> float:
+    """The run's pose graph rebuilt from the tracker's poses, each loop
+    attempt added after as many nodes as the run had then, optimised as
+    the run optimised it (10 iterations; a rejected loop removed, the
+    poses restored, 5 more), with the accepted loops' relative poses as
+    place recognition measured them or, `exact`, the ground truth's.
+    Returns the ATE of the rebuilt graph's poses."""
+    from kintinuous_tpu_torch.backend.pose_graph import PoseGraph
+    from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
+
+    g = PoseGraph(device=dev)
+    stamps, poses = list(tr.stamps_us), [np.asarray(T, np.float64) for T in tr.poses]
+    added = 0
+
+    def grow(n):
+        nonlocal added
+        for k in range(added, n):
+            if k == 0:
+                g.add_node(stamps[0], poses[0])
+            else:
+                g.add_odometry(stamps[k - 1], stamps[k], np.linalg.inv(poses[k - 1]) @ poses[k])
+        added = max(added, n)
+
+    for e in md.loop_log:
+        grow(e["n_nodes"])
+        T = np.asarray(e["T_1_2"], np.float64)
+        if exact and e["accepted"]:
+            T = _true_relative(gs, gp, e)
+        old = [P.copy() for P in g.poses]
+        fid = g.add_loop(e["t1"], e["t2"], T)
+        g.optimise(iters=10)
+        if not e["accepted"]:
+            g.remove_factor(fid)
+            g.poses[:] = old
+            g.optimise(iters=5)
+    grow(len(poses))
+    return absolute_trajectory_error(gs, gp, np.asarray(g.times) / 1e6, np.array(g.poses))[0]
+
+
+def od_lap(cfg, dev, card: str, lap: LapLog, log_dir: str) -> dict:
+    """Phase 11: online deformation on bench C's lap (bench.py:164-209,
+    274-340) at config A with its dynamic cube, 640x480, 512^3 over 6 m:
+    the CLI in process, batched, `--fast -fod -t 16 -d -dc -ri -od -m -lt
+    0 --prior 0.01`, fed the lap's uncompressed colour (io/klg._decode_rgb
+    replaced by a reshape of the raw bytes, standing in for the JPEG
+    codec the card's machine lacks; without it the reader raises). Then
+    the -od backend on the card against the CPU (od_card_vs_cpu) and an
+    -od engine checkpoint restored into a fresh engine."""
+    import gc
+
+    import torch
+
+    from kintinuous_tpu_torch import cli
+    from kintinuous_tpu_torch.backend import deformation as dgmod
+    from kintinuous_tpu_torch.backend import place_recognition as prmod
+    from kintinuous_tpu_torch.backend import pose_graph as pgmod
+    from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
+    from kintinuous_tpu_torch.eval.loop_gate import tag_loop_log
+    from kintinuous_tpu_torch.io import klg
+    from kintinuous_tpu_torch.io.pcd import load_pcd
+    from kintinuous_tpu_torch.io.ply import load_ply
+    from kintinuous_tpu_torch.io.synth import lap_scene, render_frame
+    from kintinuous_tpu_torch.io.tum import load_trajectory
+    from kintinuous_tpu_torch.runtime import checkpoint as pck
+    from kintinuous_tpu_torch.runtime.engine import SlamEngine
+
+    cam = cfg.camera
+    seen = {"orb_ms": [], "refine_ms": [], "orb": set(), "refine": set(), "pg": set(),
+            "dg": set(), "dg_last": None, "refine_last": None}
+    detect, refine, pg_core, dg_core, decode, save = (
+        prmod.detect_orb, prmod.refine_loop, pgmod.gn_core, dgmod.gn_core, klg._decode_rgb,
+        SlamEngine.save)
+
+    def orb(gray, *a, **k):
+        seen["orb"].add(gray.device.type)
+        t0 = time.perf_counter()
+        out = detect(gray, *a, **k)  # returns host arrays: the time is the detector's
+        seen["orb_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def dense(cfg_, d1, d2, T, device, *a):
+        seen["refine"].add(torch.device(device).type)
+        seen["refine_last"] = (cfg_, d1, d2, T, a)
+        t0 = time.perf_counter()
+        out = refine(cfg_, d1, d2, T, device, *a)  # returns a host array: the time is the ICP's
+        seen["refine_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def pg(poses, *a, **k):
+        seen["pg"].add(poses.device.type)
+        return pg_core(poses, *a, **k)
+
+    def dg(*a):
+        seen["dg"].add(a[0].device.type)
+        seen["dg_last"] = [x.clone() if torch.is_tensor(x) else x for x in a]
+        return dg_core(*a)
+
+    def raw(buf):
+        return np.frombuffer(buf, np.uint8).reshape(cam.height, cam.width, 3)
+
+    def keep(self, *a, **k):
+        seen["engine"], seen["fps"] = self, self.fps
+        return save(self, *a, **k)
+
+    base = f"{log_dir}/od_lap"
+    argv = ["-l", lap.path, "--fast", "-fod", "-t", "16", "-d", "-dc", "-ri", "-od", "-m",
+            "-lt", "0", "--prior", "0.01", "-o", base, "-c", f"{log_dir}/calib.txt",
+            "-s", str(cfg.volume_size), "--resolution", str(cfg.volume_resolution),
+            "--device", str(dev)]
+    cuda = dev.type == "cuda"
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated(dev) if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    prmod.detect_orb, prmod.refine_loop, pgmod.gn_core, dgmod.gn_core = orb, dense, pg, dg
+    klg._decode_rgb, SlamEngine.save = raw, keep
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = cli.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        prmod.detect_orb, prmod.refine_loop, pgmod.gn_core, dgmod.gn_core = (
+            detect, refine, pg_core, dg_core)
+        klg._decode_rgb, SlamEngine.save = decode, save
+    peak = torch.cuda.max_memory_allocated(dev) - mem0 if cuda else None
+    engine = seen["engine"]
+    tr, md, pr = engine.tracker, engine.deformation, engine.place_rec
+    gs, gp = load_trajectory(lap.gt)
+    ate_pre, _ = absolute_trajectory_error(gs, gp, np.array(tr.stamps_us) / 1e6,
+                                           np.array(tr.poses))
+    es, ep = load_trajectory(f"{base}.poses")
+    ate_final, n = absolute_trajectory_error(gs, gp, es, ep)
+    gate = tag_loop_log(md.loop_log, gs, gp)
+    n_points = len(load_pcd(f"{base}_opt.pcd")["points"])
+    mesh = load_ply(f"{base}_opt.ply")
+    stats = engine.sw.stats()
+    orb_ms, refine_ms = seen["orb_ms"], seen["refine_ms"]
+    res = dict(phase="od_lap", card=card, frames=len(lap.poses), rc=rc,
+               render_seconds=lap.seconds, seconds_with_save=seconds, fps=seen["fps"],
+               poses=len(es), matched=n, ate_preloop_m=ate_pre, ate_final_m=ate_final,
+               shift_frames=sum(1 for s in tr.shift_log if np.any(s != 0)),
+               loops_accepted=md.n_loops_accepted, loops_rejected=md.n_loops_rejected,
+               pr_gates=dict(pr.gate_stats), loop_gate=gate,
+               loop_error_median_m=statistics.median(
+                   [e["gt_error_m"] for e in md.loop_log
+                    if e["accepted"] and e.get("gt_error_m") is not None] or [0.0]),
+               keyframes_taken=pr.gate_stats["keyframes"],
+               keyframes_dropped=engine.keyframes_dropped,
+               span_mean_ms={k: stats[k]["mean_ms"] for k in
+                             ("processFrame", "SliceProcessor", "PlaceRecognition",
+                              "Deformation") if k in stats},
+               span_count={k: stats[k]["count"] for k in ("PlaceRecognition", "Deformation")
+                           if k in stats},
+               orb_ms_mean=statistics.mean(orb_ms) if orb_ms else None,
+               orb_ms_median=statistics.median(orb_ms) if orb_ms else None,
+               orb_ms_max=max(orb_ms) if orb_ms else None,
+               refine_ms=refine_ms,
+               backend_devices={k: sorted(seen[k]) for k in ("orb", "refine", "pg", "dg")},
+               peak_memory_above_bytes=peak,
+               peak_memory_above_gib=peak / 2 ** 30 if cuda else None,
+               opt_pcd_points=n_points, opt_ply_vertices=len(mesh["vertices"]),
+               opt_ply_faces=len(mesh.get("faces", ())),
+               cli_output=[ln.strip() for ln in out.getvalue().replace("\r", "\n")
+                           .splitlines() if ln.strip()][-6:])
+    print(json.dumps({"phase": "od_lap_orb_ms", "card": card, "per_keyframe": orb_ms}),
+          flush=True)
+    # each loop attempt: the gate's delta-chi2, the correction, the
+    # decision and the candidate's error against the ground truth
+    print(json.dumps({"phase": "od_lap_loops", "card": card, "attempts": [
+        {k: e.get(k) for k in ("kf_t1", "kf_t2", "chi2_delta", "max_node_delta_m", "accepted",
+                               "gt_error_m", "gt_rot_err_deg")} for e in md.loop_log]}),
+          flush=True)
+    # the run's graph rebuilt with the measured loops and with exact ones
+    res.update(ate_final_replayed_m=replay_loops(tr, md, gs, gp, dev, exact=False),
+               ate_final_exact_loops_m=replay_loops(tr, md, gs, gp, dev, exact=True))
+    frame = render_frame(lap_scene(LAP_KW["length"], LAP_KW["depth"]), cam,
+                         lap.poses[ORB_CHECK_FRAME])[1]
+    res["card_vs_cpu"] = od_card_vs_cpu(engine, seen, dev, frame)
+    # an -od engine checkpoint, restored into a fresh engine
+    ck = f"{log_dir}/od_lap.npz"
+    t0 = time.perf_counter()
+    pck.save_engine_checkpoint(ck, engine)
+    t1 = time.perf_counter()
+    fresh = SlamEngine(engine.cfg, device=dev)
+    pck.load_engine_checkpoint(ck, fresh)
+    t2 = time.perf_counter()
+    res["checkpoint"] = dict(bytes=os.path.getsize(ck), save_s=t1 - t0, load_s=t2 - t1,
+                             equal=_same_backend(engine, fresh))
+    del fresh
+    os.remove(ck)
+    print(json.dumps(res), flush=True)
+    cv = res["card_vs_cpu"]
+    assert rc == 0 and len(es) == len(lap.poses) == LAP_FRAMES and n == LAP_FRAMES
+    assert res["shift_frames"] > 0, "the lap never shifted the volume"
+    assert md.n_loops_accepted >= 1, f"no loop accepted: {pr.gate_stats}"
+    # every accepted loop is genuine (within 0.35 m of the ground truth)
+    assert gate["loop_gate_precision"] == 1.0, gate
+    assert n_points > 0 and res["opt_ply_faces"] > 0, "empty _opt.pcd or _opt.ply"
+    assert all(v == [dev.type] for v in res["backend_devices"].values()), res["backend_devices"]
+    assert cv["orb_same_keypoints"] and cv["orb_descriptor_bits_equal"] >= 0.99, cv
+    assert cv["refine_max_diff_m"] <= 1e-4 and cv["refine_max_diff_deg"] <= 1e-3, cv
+    assert cv["pose_graph_max_diff"] <= 1e-4, cv
+    assert cv["deform_apply_max_diff_m"] <= 1e-4, cv
+    assert cv["deform_solve_max_diff_m"] <= cv["deform_solve_f32_vs_f64_cpu_m"] + 1e-4, cv
+    assert all(res["checkpoint"]["equal"].values()), res["checkpoint"]
+    # the same graph, its accepted loops given the truth's relative poses
+    check(res["ate_final_exact_loops_m"] < ate_pre,
+          f"exact loops did not pay: {ate_pre} -> {res['ate_final_exact_loops_m']} m")
+    # the correction pays: the deformed trajectory is nearer the truth
+    check(ate_final < ate_pre, f"deformation did not pay: {ate_pre} -> {ate_final} m")
+    return res
+
+
 def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     """All phases on `dev`; returns the kernel rows with the launch
-    counts of the paths phases 2-10 drive (each engine run is a path)."""
+    counts of the paths phases 2-11 drive (each engine run is a path)."""
     import tempfile
 
-    from kintinuous_tpu_torch.backend import native_ops
-    from kintinuous_tpu_torch.config import KintinuousConfig
     from kintinuous_tpu_torch.io.synth import Scene, orbit_trajectory, render_frame
     from kintinuous_tpu_torch.ops.cuda_integrate import band_fusion, free_carve
     from kintinuous_tpu_torch.ops.cuda_raycast import (
         build_mirror, mirror_refresh, tile_raycast)
     from kintinuous_tpu_torch.tools import proto_integrate as P
-    from kintinuous_tpu_torch.tracking.tracker import keeps_mirror
 
     wrappers = {"band_fusion": band_fusion, "free_carve": free_carve,
                 "mirror_refresh": mirror_refresh, "build_mirror": build_mirror,
                 "tile_raycast": tile_raycast, "probe_rows": P.run_rows,
                 "probe_dma": P.run_dma, "probe_full": P.run_full,
                 "probe_dyn": P.run_dyn}
-    poses = orbit_trajectory(12, radius=0.06, angle_deg=3.0)
-    # the bare room leaves free space in front of its walls: the carve
-    # gets blocks to work on (the default scene's objects sit too close
-    # to the camera for any block to classify as free)
-    room = [render_frame(Scene(), cfg.camera, T) for T in poses[:5]]
-    rows = check_kernels(cfg, dev, room, poses, card)
-    frames = [render_frame(Scene.default(), cfg.camera, T) for T in poses]
+    log_dir = tempfile.TemporaryDirectory()
+    d = log_dir.name
+    try:
+        # phase 11's lap, rendered on every core before any timed phase
+        lap = LapLog(cfg.camera, d)
+        poses = orbit_trajectory(12, radius=0.06, angle_deg=3.0)
+        # the bare room leaves free space in front of its walls: the carve
+        # gets blocks to work on (the default scene's objects sit too close
+        # to the camera for any block to classify as free)
+        room = [render_frame(Scene(), cfg.camera, T) for T in poses[:5]]
+        rows = check_kernels(cfg, dev, room, poses, card)
+        frames = [render_frame(Scene.default(), cfg.camera, T) for T in poses]
+        return run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap,
+                         d)
+    finally:
+        log_dir.cleanup()
+
+
+def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, d) -> list:
+    """Phases 2-11, each path with the launch counts set to 0 just before
+    it and read just after."""
+    from kintinuous_tpu_torch.backend import native_ops
+    from kintinuous_tpu_torch.config import KintinuousConfig
+    from kintinuous_tpu_torch.tools import proto_integrate as P
+    from kintinuous_tpu_torch.tracking.tracker import keeps_mirror
+
 
     # each path runs with the counts set to 0 just before it, read just after
     by_path = {}
@@ -1160,8 +1586,6 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     # the slice processor's native library is built before the engine
     # runs, so none of them pays for the build
     native_ops.available()
-    log_dir = tempfile.TemporaryDirectory()
-    d = log_dir.name
     write_engine_log(cfg, d)
     # batched and per frame, in the order A B B A, so that a drift of
     # the host's speed during the phase falls on both alike
@@ -1194,11 +1618,12 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     counted("dense_cli", dense_cli, dense, dev, card, d)
     counted("dense_resume", resume, dense, dev, walk_poses, walk_frames, card,
             "dense_resume")
-    log_dir.cleanup()
+    # online deformation on bench C's lap
+    counted("od_lap", od_lap, cfg, dev, card, lap, d)
     for path in DENSE_PATHS:
         launched = {k: n for k, n in by_path[path].items() if n}
         assert not launched, f"the {path} path launched {launched}"
-    for path in ("orbit", "walk", "orbit_rgbd", "engine_mesh") + tuple(
+    for path in ("orbit", "walk", "orbit_rgbd", "engine_mesh", "od_lap") + tuple(
             p for p, _ in ENGINE_RUNS):
         # K1-K4 run on every frame
         for name in ("band_fusion", "free_carve", "mirror_refresh", "tile_raycast"):
@@ -1249,6 +1674,9 @@ def main(argv=None) -> int:
     rows = run(cfg, dev, card, args.trace)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
+    if FAILED:
+        print(f"chip_smoke: {len(FAILED)} check(s) failed: {FAILED}", file=sys.stderr)
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,8 @@ JAX package's (kintinuous_tpu/cli.py):
     -l  <log.klg>      input log
     -live <addr>       live capture                       (not ported)
     -p  <traj>         ground-truth trajectory replay
-    -v  <vocab.npy>    BoW vocabulary (used only with -od)
+    -v  <vocab.npy>    BoW vocabulary (used only with -od; one trained by the
+                       port's detector, features.train_vocab_from_klg)
     -c  <calib>        calibration: "fx fy cx cy [w h]" text file
     -s  <m>            volume size (default 6)
     -t  <voxels>       shift threshold in voxels (default 14, clamp 1-16)
@@ -16,8 +17,8 @@ JAX package's (kintinuous_tpu/cli.py):
     -it <thresh>       pose-graph residual gate (default 10)
     -f                 flip RGB/BGR colours at ingest
     -sm                static mode (no shifting)
-    -m                 mesh output (<basename>.ply)
-    -od                online deformation (loop closure)  (not ported)
+    -m                 mesh output (<basename>.ply; <basename>_opt.ply with -od)
+    -od                online deformation (loop closure)
     -no                disable shift-overlap extraction
     -nos               disable overlap removal on save
     -r                 RGB-D odometry
@@ -120,7 +121,6 @@ def _parser() -> argparse.ArgumentParser:
 
 _UNPORTED = (  # (flag, argparse dest, is-set test)
     ("-live", "live_source", bool),
-    ("-od", "online_deformation", bool),
     ("--viz-port", "viz_port", lambda v: v is not None),
     ("--devices > 1", "devices", lambda v: v > 1),
     ("--num-processes > 1", "num_processes", lambda v: v > 1),
@@ -208,7 +208,7 @@ def main(argv=None) -> int:
     for kind, path in outputs.items():
         print(f"saved {kind}: {path}")
     stats = engine.sw.stats()
-    for name in ("processFrame", "SliceProcessor"):
+    for name in ("processFrame", "SliceProcessor", "PlaceRecognition", "Deformation"):
         if name in stats:
             s = stats[name]
             print(f"{name}: mean {s['mean_ms']:.1f} ms over {s['count']}")

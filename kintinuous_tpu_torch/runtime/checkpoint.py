@@ -7,7 +7,10 @@ save_checkpoint / load_checkpoint
     processed payloads), mesh patches, trajectory, stats.
 save_engine_checkpoint / load_engine_checkpoint
     the tracker plus the engine's counters and the slice processor's
-    pool, for an engine without online deformation.
+    pool; with online deformation also the pose graph (`pg_*`), the
+    deformation graph (`dg_*`), the map deformation's raw poses, loop
+    counts, slices and mesh patches (`md*`), and the place-recognition
+    keyframe ring (`kf{i}_*`) with its vocabulary (`pr_vocab`).
 
 The file format is the JAX package's: one compressed npz with a JSON
 `__meta__` entry, the cw volume as uint32, and `fast_mode` in the meta,
@@ -17,11 +20,10 @@ restore rebuilds it from the volume with `build_mirror` (K5), as the
 JAX package's _rebuild_logical does with build_logical_bf16, for a
 tracker that keeps one (fast mode, an even block count).
 The RGB-D pyramid is not saved either: a restored tracker keeps the one
-it was built with, as the JAX package's does.
-
-Not ported yet: the pose-graph, deformation and place-recognition
-fields of an engine checkpoint of an -od run; a file that holds them
-raises NotImplementedError.
+it was built with, as the JAX package's does. Binary blobs (a keyframe's
+zlib depth, its JPEG colour: empty for the port's own keyframes) ride as
+uint8 arrays; the BoW database is rebuilt from the restored ring on the
+next keyframe.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ import json
 import numpy as np
 import torch
 
+from kintinuous_tpu_torch.backend.features import Vocabulary
 from kintinuous_tpu_torch.backend.meshing import MeshPatch
+from kintinuous_tpu_torch.backend.place_recognition import Keyframe
 from kintinuous_tpu_torch.ops.blocked import BlockedVolume
 from kintinuous_tpu_torch.ops.cuda_raycast import build_mirror
 from kintinuous_tpu_torch.ops.tsdf import VolumeState
@@ -190,34 +194,146 @@ def load_checkpoint(path: str, tracker: Tracker) -> Tracker:
     return _restore_tracker(data, meta, tracker)
 
 
+def _pack_deformation(arrays: dict, meta: dict, md) -> None:
+    g = md.graph
+    arrays["pg_times"] = np.asarray(g.times, np.int64)
+    arrays["pg_poses"] = np.asarray(g.poses, np.float64).reshape(-1, 4, 4)
+    arrays["pg_fi"] = np.asarray(g._fi, np.int32)
+    arrays["pg_fj"] = np.asarray(g._fj, np.int32)
+    arrays["pg_fZ"] = np.asarray(g._fZ, np.float64).reshape(-1, 4, 4)
+    arrays["pg_fw"] = np.asarray(g._fw, np.float64)
+    arrays["pg_floop"] = np.asarray(g._floop, bool)
+    meta["pose_graph"] = True
+    dg = md.dgraph
+    arrays["dg_g"] = np.asarray(dg.g, np.float64).reshape(-1, 3)
+    arrays["dg_times"] = np.asarray(dg.times, np.int64)
+    if dg.A is not None:
+        arrays["dg_A"] = np.asarray(dg.A)
+        arrays["dg_t"] = np.asarray(dg.t)
+    raw_t = sorted(md._raw_pose.keys())
+    arrays["md_raw_times"] = np.asarray(raw_t, np.int64)
+    arrays["md_raw_poses"] = np.asarray([md._raw_pose[t] for t in raw_t],
+                                        np.float64).reshape(-1, 4, 4)
+    meta["deformation"] = {
+        "n_loops_accepted": md.n_loops_accepted,
+        "n_loops_rejected": md.n_loops_rejected,
+        "last_time": md._last_time,
+        "n_slices": len(md.slices),
+        "n_patches": len(md.mesh_patches),
+        "has_dg_A": dg.A is not None,
+    }
+    if md._last_pose is not None:
+        arrays["md_last_pose"] = np.asarray(md._last_pose)
+    for i, sl in enumerate(md.slices):
+        _pack_slice(arrays, meta, f"mdslice{i}", sl)
+    for i, p in enumerate(md.mesh_patches):
+        _pack_patch(arrays, meta, f"mdpatch{i}", p)
+
+
+def _restore_deformation(data, meta: dict, md) -> None:
+    g = md.graph
+    g.times = [int(t) for t in data["pg_times"]]
+    g.poses = [p for p in data["pg_poses"]]
+    g._time_to_id = {t: i for i, t in enumerate(g.times)}
+    g._fi = [int(x) for x in data["pg_fi"]]
+    g._fj = [int(x) for x in data["pg_fj"]]
+    g._fZ = [z for z in data["pg_fZ"]]
+    g._fw = [float(w) for w in data["pg_fw"]]
+    g._floop = [bool(b) for b in data["pg_floop"]]
+    dm = meta["deformation"]
+    dg = md.dgraph
+    dg.g = [p for p in data["dg_g"]]
+    dg.times = [int(t) for t in data["dg_times"]]
+    if dm["has_dg_A"]:
+        dg.A = np.asarray(data["dg_A"])
+        dg.t = np.asarray(data["dg_t"])
+    md._raw_pose = {int(t): p for t, p in zip(data["md_raw_times"], data["md_raw_poses"])}
+    md.n_loops_accepted = int(dm["n_loops_accepted"])
+    md.n_loops_rejected = int(dm["n_loops_rejected"])
+    md._last_time = dm["last_time"]
+    md._last_pose = np.asarray(data["md_last_pose"]) if "md_last_pose" in data else None
+    md._last_node_pos = md._last_pose[:3, 3] if md._last_pose is not None else None
+    md.slices = [_unpack_slice(data, meta, f"mdslice{i}") for i in range(dm["n_slices"])]
+    md.mesh_patches = [_unpack_patch(data, meta, f"mdpatch{i}")
+                       for i in range(dm["n_patches"])]
+
+
+def _pack_place_rec(arrays: dict, meta: dict, pr) -> None:
+    meta["place_rec"] = {
+        "n_keyframes": len(pr.keyframes),
+        "next_kf_id": pr._next_kf_id,
+        "last_loop_time_us": pr._last_loop_time_us,
+        "has_vocab": pr.vocab is not None,
+    }
+    if pr.vocab is not None:
+        arrays["pr_vocab"] = pr.vocab.centroids
+    for i, kf in enumerate(pr.keyframes):
+        arrays[f"kf{i}_keypoints"] = kf.keypoints
+        arrays[f"kf{i}_descriptors"] = kf.descriptors
+        arrays[f"kf{i}_points3d"] = kf.points3d
+        arrays[f"kf{i}_pose"] = kf.pose
+        arrays[f"kf{i}_depth_z"] = np.frombuffer(kf.depth_z, np.uint8)
+        arrays[f"kf{i}_rgb_jpg"] = np.frombuffer(kf.rgb_jpg, np.uint8)
+        meta[f"kf{i}"] = {"kf_id": kf.kf_id, "timestamp_us": kf.timestamp_us,
+                          "depth_shape": list(kf.depth_shape)}
+
+
+def _restore_place_rec(data, meta: dict, pr) -> None:
+    pm = meta["place_rec"]
+    if pm["has_vocab"]:
+        pr.vocab = Vocabulary(np.asarray(data["pr_vocab"]))
+    pr.keyframes = []
+    for i in range(pm["n_keyframes"]):
+        km = meta[f"kf{i}"]
+        pr.keyframes.append(Keyframe(
+            kf_id=int(km["kf_id"]), timestamp_us=int(km["timestamp_us"]),
+            pose=data[f"kf{i}_pose"], keypoints=data[f"kf{i}_keypoints"],
+            descriptors=data[f"kf{i}_descriptors"], points3d=data[f"kf{i}_points3d"],
+            depth_z=data[f"kf{i}_depth_z"].tobytes(),
+            depth_shape=tuple(km["depth_shape"]),
+            rgb_jpg=data[f"kf{i}_rgb_jpg"].tobytes(),
+        ))
+    pr._next_kf_id = int(pm["next_kf_id"])
+    pr._last_loop_time_us = int(pm["last_loop_time_us"])
+    pr._pending_desc = [kf.descriptors for kf in pr.keyframes]
+    pr.db = None  # rebuilt from the restored ring (_ensure_db)
+
+
 def save_engine_checkpoint(path: str, engine) -> None:
     """Snapshot the engine at a quiescent point (the frame loop done or
-    complete, the slice queue drained)."""
-    if engine.cfg.online_deformation:
-        raise NotImplementedError("engine checkpoints of an -od run are not ported yet")
+    complete, the backend queues drained)."""
     arrays, meta = _tracker_payload(engine.tracker)
     meta["engine"] = {
         "frames_done": engine._frames_done,
         "slice_idx": engine._slice_idx,
-        "has_last_kf_pose": False,
+        "has_last_kf_pose": engine._last_kf_pose is not None,
     }
+    if engine._last_kf_pose is not None:
+        arrays["last_kf_pose"] = np.asarray(engine._last_kf_pose)
     meta["n_proc_slices"] = len(engine.slice_proc.processed)
     for i, sl in enumerate(engine.slice_proc.processed):
         _pack_slice(arrays, meta, f"proc{i}", sl)
+    if engine.deformation is not None:
+        _pack_deformation(arrays, meta, engine.deformation)
+    if engine.place_rec is not None:
+        _pack_place_rec(arrays, meta, engine.place_rec)
     np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
 
 
 def load_engine_checkpoint(path: str, engine) -> None:
-    """Restore into a freshly constructed SlamEngine (same configuration)."""
+    """Restore into a freshly constructed SlamEngine (same configuration).
+    The -od state restores into an engine built with online deformation
+    (a file without it leaves that engine's backend fresh, as in the JAX
+    package)."""
     data, meta = _load(path, engine.cfg.fast_mode)
-    backend = [k for k in ("deformation", "place_rec", "pose_graph") if k in meta]
-    if backend or meta.get("engine", {}).get("has_last_kf_pose"):
-        raise NotImplementedError(
-            f"this checkpoint holds online-deformation state ({backend or 'keyframes'}): "
-            "not ported yet")
     _restore_tracker(data, meta, engine.tracker)
     em = meta["engine"]
     engine._frames_done = int(em["frames_done"])
     engine._slice_idx = int(em["slice_idx"])
+    engine._last_kf_pose = data["last_kf_pose"] if em.get("has_last_kf_pose") else None
     engine.slice_proc.processed = [_unpack_slice(data, meta, f"proc{i}")
                                    for i in range(meta.get("n_proc_slices", 0))]
+    if engine.deformation is not None and "deformation" in meta:
+        _restore_deformation(data, meta, engine.deformation)
+    if engine.place_rec is not None and "place_rec" in meta:
+        _restore_place_rec(data, meta, engine.place_rec)

@@ -1,5 +1,4 @@
-"""The threaded SLAM engine (port of kintinuous_tpu/runtime/engine.py,
-without online deformation).
+"""The threaded SLAM engine (port of kintinuous_tpu/runtime/engine.py).
 
 The frame loop runs on the caller's thread and feeds the Tracker; its
 slices go through a queue to a SliceProcessor worker thread. At the end
@@ -12,22 +11,40 @@ then batches of cfg.offline_batch_size, then the partial tail frame by
 frame. The dense path (fast_mode off) runs frame by frame, as the JAX
 engine does.
 
+With online deformation (-od) two more stages run: each tracked pose
+joins the pose graph (MapDeformation.add_frame_pose, on the frame
+loop), the slice worker pools each processed slice for deformation, and
+a place-recognition worker takes the keyframes (frames whose motion
+since the last keyframe passes place_rec_motion_thresh; a queue of 16
+that drops keyframes, never frames), looks for a loop and hands an
+accepted one to the deformation. Then `save` writes the deformed map
+(`<base>_opt.pcd`), the optimised trajectory and, with -m, the deformed
+mesh (`<base>_opt.ply`), once a loop was accepted. Each worker thread
+runs its torch work on a CUDA stream of its own, beside the frame loop's.
+
 Not ported yet, and raising NotImplementedError rather than running
-something else: online deformation (place recognition, pose graph,
-deformation, and with it the deformed mesh of -m -od), several devices
-or processes, live capture.
+something else: several devices or processes, live capture.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
+from collections import deque
 from typing import Callable, List, Optional
 
+import numpy as np
+import torch
+
+from kintinuous_tpu_torch.backend.deform_runner import MapDeformation
 from kintinuous_tpu_torch.backend.meshing import MeshCollector, mesh_current_volume
+from kintinuous_tpu_torch.backend.place_recognition import PlaceRecognition
 from kintinuous_tpu_torch.backend.slice_proc import SliceProcessor
 from kintinuous_tpu_torch.config import KintinuousConfig
+from kintinuous_tpu_torch.device import resolve_device
+from kintinuous_tpu_torch.geometry import se3
 from kintinuous_tpu_torch.io.klg import KlgLogReader
 from kintinuous_tpu_torch.io.tum import TrajectoryWriter, load_trajectory, save_trajectory
 from kintinuous_tpu_torch.runtime.stopwatch import Stopwatch
@@ -39,7 +56,6 @@ _SENTINEL = object()
 
 def check_engine_supported(cfg: KintinuousConfig) -> None:
     for name, unported in (
-        ("online_deformation", cfg.online_deformation),
         ("devices > 1", cfg.devices > 1),
         ("num_processes > 1", cfg.num_processes > 1),
         ("live_source", bool(cfg.live_source)),
@@ -51,22 +67,28 @@ def check_engine_supported(cfg: KintinuousConfig) -> None:
 class Worker(threading.Thread):
     """Loops process() until it returns False or halt is set, pulsing
     the stopwatch each lap; an exception ends the loop and is kept in
-    `error` for the engine to raise."""
+    `error` for the engine to raise. On a CUDA device the thread's torch
+    work runs on a stream of its own."""
 
-    def __init__(self, name: str, process: Callable[[], bool], sw: Stopwatch):
+    def __init__(self, name: str, process: Callable[[], bool], sw: Stopwatch,
+                 device: Optional[torch.device] = None):
         super().__init__(name=name, daemon=True)
         self._process = process
         self._sw = sw
+        self._device = device
         self.halt = threading.Event()
         self.finished = threading.Event()
         self.error: Optional[BaseException] = None
 
     def run(self):
         try:
-            while not self.halt.is_set():
-                self._sw.pulse(self.name)
-                if not self._process():
-                    break
+            on_card = self._device is not None and self._device.type == "cuda"
+            with (torch.cuda.stream(torch.cuda.Stream(self._device)) if on_card
+                  else contextlib.nullcontext()):
+                while not self.halt.is_set():
+                    self._sw.pulse(self.name)
+                    if not self._process():
+                        break
         except Exception as e:  # the engine re-raises it on its own thread
             self.error = e
         finally:
@@ -86,14 +108,28 @@ class SlamEngine:
 
     def _build(self):
         cfg = self.cfg
+        dev = resolve_device(self.device)
         self.slice_q: "queue.Queue" = queue.Queue()
+        self.kf_q: "queue.Queue" = queue.Queue(maxsize=16)
         self.slice_proc = SliceProcessor(cfg)
-        self.tracker = Tracker(cfg, device=self.device, slice_callback=self.slice_q.put)
+        od = cfg.online_deformation
+        self.deformation = MapDeformation(cfg, device=dev) if od else None
+        self.place_rec = PlaceRecognition(cfg, device=dev) if od else None
+        self.tracker = Tracker(
+            cfg, device=dev, slice_callback=self.slice_q.put,
+            mesh_callback=(self.deformation.add_mesh_patch
+                           if od and cfg.incremental_mesh else None))
         self._pose_writer = None
-        if cfg.save_file:
-            # per-frame poses stream out as they land
+        if cfg.save_file and not od:
+            # per-frame poses stream out as they land; under -od the
+            # trajectory is final only at the end (the optimised one)
             self._pose_writer = TrajectoryWriter(f"{cfg.save_file}.poses")
             self.tracker.pose_callback = self._pose_writer.write
+        # -od: frames waiting for their pose, and how many have one
+        self._unposed: deque = deque()
+        self._published = 0
+        self._last_kf_pose: Optional[np.ndarray] = None
+        self.keyframes_dropped = 0
         self._slice_idx = 0
         self.workers: List[Worker] = []
         self._end_of_log = threading.Event()
@@ -115,7 +151,67 @@ class SlamEngine:
             self.slice_proc.process(sl)
         if sl.wall_time:
             self.sw.gauge("lag.SliceProcessor", (time.time() - sl.wall_time) * 1e3)
+        if self.deformation is not None:
+            self.deformation.add_slice(sl)
+            if sl.wall_time:
+                self.sw.gauge("lag.Deformation", (time.time() - sl.wall_time) * 1e3)
         return True
+
+    def _pr_stage(self) -> bool:
+        try:
+            item = self.kf_q.get(timeout=0.1)
+        except queue.Empty:
+            return not self._end_of_log.is_set()
+        if item is _SENTINEL:
+            return False
+        rgb, depth_m, pose, ts, wall = item
+        with self.sw.span("PlaceRecognition"):
+            c = self.place_rec.add_keyframe(rgb, depth_m, pose, ts)
+        self.sw.gauge("lag.PlaceRecognition", (time.time() - wall) * 1e3)
+        if c is not None:
+            with self.sw.span("Deformation"):
+                self.deformation.add_loop(c)
+        return True
+
+    @property
+    def backend_lag_ms(self) -> float:
+        """The largest backend stage lag."""
+        return self.sw.max_gauge("lag.")
+
+    # ------------------------------------------------------- keyframes
+    def _frame_done(self, depth, rgb, ts: int) -> None:
+        """Under -od, hold a processed frame until its pose lands."""
+        if self.deformation is not None:
+            self._unposed.append((depth, rgb, int(ts)))
+
+    def _keyframe_due(self, pose: np.ndarray) -> bool:
+        """Motion since the last keyframe, (|rotation| + |translation|) / 2,
+        at least place_rec_motion_thresh."""
+        if self._last_kf_pose is None:
+            return True
+        d = np.linalg.inv(self._last_kf_pose) @ pose
+        rot = se3.log_se3(torch.from_numpy(d.astype(np.float32)))[:3].numpy()
+        return ((np.linalg.norm(rot) + np.linalg.norm(d[:3, 3])) / 2.0
+                >= self.cfg.place_rec_motion_thresh)
+
+    def _publish(self) -> None:
+        """Pair held frames with their now-available poses: each pose
+        joins the pose graph, and a frame with colour whose motion passes
+        the gate goes to the place-recognition worker (dropped when its
+        queue is full: keyframes, never frames)."""
+        poses = self.tracker.poses
+        while self._unposed and self._published < len(poses):
+            depth, rgb, ts = self._unposed.popleft()
+            pose = poses[self._published]
+            self._published += 1
+            self.deformation.add_frame_pose(ts, pose)
+            if rgb is not None and self._keyframe_due(pose):
+                self._last_kf_pose = pose
+                try:
+                    self.kf_q.put_nowait((rgb, depth.astype(np.float32) / 1000.0, pose,
+                                          ts, time.time()))
+                except queue.Full:
+                    self.keyframes_dropped += 1
 
     # ---------------------------------------------------------- running
     def _wait_while_paused(self):
@@ -127,9 +223,14 @@ class SlamEngine:
         cfg = self.cfg
         if not cfg.log_file:
             raise ValueError("SlamEngine.run needs cfg.log_file")
-        self.workers = [Worker("SliceProcessor", self._slice_stage, self.sw)]
+        dev = self.tracker.device
+        self.workers = [Worker("SliceProcessor", self._slice_stage, self.sw, dev)]
+        if self.place_rec is not None:
+            self.workers.append(Worker("PlaceRecognition", self._pr_stage, self.sw, dev))
         for w in self.workers:
             w.start()
+        # the poses already in the tracker (a resumed run) are published
+        self._published = len(self.tracker.poses)
         gt = None
         if cfg.trajectory_file:
             gt = GroundTruthOdometry(*load_trajectory(cfg.trajectory_file))
@@ -156,6 +257,8 @@ class SlamEngine:
                     self.tracker.process_frame(frame.depth, rgb, frame.timestamp,
                                                ext_delta=delta)
                 self._frames_done += 1
+                self._frame_done(frame.depth, rgb, frame.timestamp)
+                self._publish()
                 if progress:
                     progress(self._frames_done, reader.total_num_frames)
                 if frame_budget:
@@ -237,6 +340,9 @@ class SlamEngine:
                     if kind == "first":
                         self.tracker.flush()
                 self._frames_done += len(frames)
+                for fr in frames:
+                    self._frame_done(*fr)
+                self._publish()
                 if progress:
                     progress(self._frames_done, total)
         finally:
@@ -249,12 +355,16 @@ class SlamEngine:
 
     def _finish(self) -> "SlamEngine":
         self.tracker.flush()
+        if self.deformation is not None:
+            self._publish()
         self.tracker.finalise()
         if self._pose_writer is not None:
             self._pose_writer.close()
             self._pose_writer = None
         self._end_of_log.set()
         self.slice_q.put(_SENTINEL)
+        if self.place_rec is not None:
+            self.kf_q.put(_SENTINEL)
         for w in self.workers:
             w.finished.wait(timeout=300)
         for w in self.workers:
@@ -266,13 +376,28 @@ class SlamEngine:
     def save(self, basename: Optional[str] = None) -> dict:
         """Write the map (`<base>.pcd`), the trajectory (`<base>.poses`)
         and with meshing on the whole-map mesh (`<base>.ply`): every band
-        patch emitted on the shifts welded with the live volume's mesh."""
+        patch emitted on the shifts welded with the live volume's mesh.
+        Once -od accepted a loop: the deformed map (`<base>_opt.pcd`),
+        the optimised trajectory, and with meshing the deformed band
+        patches (`<base>_opt.ply`)."""
         base = basename or self.cfg.save_file
-        out = {"cloud": f"{base}.pcd", "poses": f"{base}.poses"}
-        self.slice_proc.save(out["cloud"], deoverlap=self.cfg.save_deoverlap)
-        save_trajectory(out["poses"], [t / 1e6 for t in self.tracker.stamps_us],
-                        self.tracker.poses)
-        if self.cfg.mesh:
+        md = self.deformation
+        out = {"poses": f"{base}.poses"}
+        if md is not None and md.n_loops_accepted:
+            out["cloud"] = f"{base}_opt.pcd"
+            md.save_cloud(out["cloud"])
+            ts, poses = md.optimised_trajectory()
+            save_trajectory(out["poses"], [t / 1e6 for t in ts], poses)
+        else:
+            out["cloud"] = f"{base}.pcd"
+            self.slice_proc.save(out["cloud"], deoverlap=self.cfg.save_deoverlap)
+            save_trajectory(out["poses"], [t / 1e6 for t in self.tracker.stamps_us],
+                            self.tracker.poses)
+        if (self.cfg.mesh and self.cfg.incremental_mesh and md is not None
+                and md.n_loops_accepted and md.mesh_patches):
+            out["mesh"] = f"{base}_opt.ply"
+            md.save_mesh(out["mesh"])
+        elif self.cfg.mesh:
             out["mesh"] = f"{base}.ply"
             mc = MeshCollector()
             for p in self.tracker.mesh_patches:
@@ -292,6 +417,8 @@ class SlamEngine:
         """Stop the workers and start over with a fresh tracker."""
         self._end_of_log.set()
         self.slice_q.put(_SENTINEL)
+        if self.place_rec is not None:
+            self.kf_q.put(_SENTINEL)
         for w in self.workers:
             w.halt.set()
         for w in self.workers:

@@ -140,16 +140,3 @@ def test_checkpoint_crosses_between_the_packages(walk, tmp_path, direction):
     np.testing.assert_array_equal(sb, sa)
     assert (sa != 0).any()
     np.testing.assert_allclose(np.array(dst.poses), np.array(src.poses), atol=2e-3)
-
-
-def test_engine_checkpoint_of_an_od_run_is_not_ported(tmp_path):
-    import json
-
-    path = str(tmp_path / "od.npz")
-    np.savez_compressed(path, __meta__=json.dumps({"fast_mode": True, "deformation": {}}))
-
-    class Engine:
-        cfg = port_cfg(walk_cfg())
-
-    with pytest.raises(NotImplementedError):
-        pck.load_engine_checkpoint(path, Engine())

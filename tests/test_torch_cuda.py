@@ -446,3 +446,142 @@ def test_dense_frame_on_the_card_follows_the_cpu(card):
     assert (rk.nmap.cpu() - rc.nmap)[:, both].abs().max() <= 1e-3
     assert counts == [w.launches for w in (band_fusion, free_carve, mirror_refresh,
                                            build_mirror, tile_raycast)]
+
+
+# ------------------------------------------------------------ -od backend
+
+def _lap_rgb(w=320, h=240, i=60):
+    from kintinuous_tpu_torch.io.synth import lap_scene, lap_trajectory
+
+    f = 528.0 * w / 640
+    cam = CameraIntrinsics(fx=f, fy=f, cx=w / 2, cy=h / 2, width=w, height=h)
+    return render_frame(lap_scene(), cam, lap_trajectory()[i], 6.0, np.random.default_rng(7))[1]
+
+
+def test_orb_on_the_card_follows_the_cpu(card):
+    """The detector on the card and on the CPU: the same keypoints, in
+    the same order, angles within 1e-3 degrees, and descriptors equal on
+    at least 99 % of their bits (the pyramid and the blur are integer
+    arithmetic; only the steering's cos/sin may round differently)."""
+    from kintinuous_tpu_torch.backend.features import orb_keypoints, rgb_to_gray
+
+    rgb = torch.from_numpy(_lap_rgb(640, 480))
+    gk = rgb_to_gray(rgb.to(card))
+    assert gk.device.type == "cuda"
+    k, c = orb_keypoints(gk), orb_keypoints(rgb_to_gray(rgb))
+    assert k["desc"].device.type == "cuda" and len(c["pts"]) > 100
+    assert torch.equal(k["pts"].cpu(), c["pts"]) and torch.equal(k["octave"].cpu(), c["octave"])
+    assert (k["angle"].cpu() - c["angle"]).abs().max() <= 1e-3
+    bits = np.unpackbits(k["desc"].cpu().numpy() ^ c["desc"].numpy())
+    assert bits.mean() <= 0.01
+
+
+def _chain_graph(device, n=200, seed=7):
+    from kintinuous_tpu_torch.backend.pose_graph import PoseGraph
+    from kintinuous_tpu_torch.geometry import se3
+
+    def exp(xi):
+        return se3.exp_se3(torch.tensor(xi, dtype=torch.float32)).numpy().astype(np.float64)
+
+    rng = np.random.default_rng(seed)
+    g = PoseGraph(device=device)
+    step = exp([0.02, 0.0, 0.03, 0.1, 0.0, 0.05])
+    for k in range(n - 1):
+        g.add_odometry(k, k + 1, step @ exp(np.r_[rng.normal(0, 0.004, 3),
+                                               rng.normal(0, 0.004, 3)]))
+    g.add_loop(0, n - 1, exp([0.1, 0.2, -0.1, 0.5, 0.2, 0.1]))
+    g.add_loop(20, 150, exp([0.0, 0.1, 0.0, 0.2, 0.0, 0.0]))
+    return g
+
+
+def test_pose_graph_on_the_card_follows_the_cpu(card):
+    """PoseGraph.optimise on the card against the CPU (float atomics in
+    index_add_ on the card): poses within 1e-4, chi2 within 1e-3
+    relative."""
+    gk, gc = _chain_graph(card), _chain_graph("cpu")
+    poses, chi2 = gk.solve(3)
+    assert poses.device.type == "cuda" and chi2.device.type == "cuda"
+    ck, cc = gk.optimise(10), gc.optimise(10)
+    np.testing.assert_allclose(np.array(gk.poses), np.array(gc.poses), atol=1e-4)
+    assert ck == pytest.approx(cc, rel=1e-3)
+
+
+def test_deformation_on_the_card_follows_the_cpu(card):
+    """DeformationGraph.optimise and apply on the card against the CPU:
+    the card's float32 solve lies no farther from the CPU's than the
+    CPU's float32 solve lies from its float64 one, plus 1e-4 m (60 CG
+    steps leave the weakly constrained directions where rounding puts
+    them); the apply of one graph within 1e-5 m."""
+    from kintinuous_tpu_torch.backend import deformation as dgmod
+    from kintinuous_tpu_torch.backend.deformation import DeformationGraph
+
+    rng = np.random.default_rng(3)
+    n = 40
+    times = np.arange(n) * 1000
+    pos = np.c_[np.linspace(0, 12, n), 0.3 * np.sin(np.linspace(0, 4, n)), np.zeros(n)]
+    graphs = [DeformationGraph(k=4, sample_dist=0.25, device=d) for d in (card, "cpu")]
+    src = pos[rng.integers(0, n, 300)] + rng.normal(0, 0.3, (300, 3))
+    vt = rng.integers(0, times[-1] + 1, 300)
+    dst = src + np.c_[0.02 * src[:, 0], np.zeros(300), -0.01 * src[:, 0]]
+    verts = rng.uniform(-1, 13, (2000, 3))
+    vtimes = rng.integers(0, times[-1] + 1, 2000)
+    out = []
+    for g in graphs:
+        g.append_poses(times, pos)
+        A, _, _ = g.solve(src, dst, g.bind(src, vt), iters=2)
+        assert A.device.type == torch.device(g.device).type
+        g.optimise(src, dst, g.bind(src, vt), iters=10)
+        applied = g.apply_tensor(verts, g.bind(verts, vtimes))
+        assert applied.device.type == torch.device(g.device).type
+        out.append(applied.cpu().numpy())
+    # the CPU's float64 solve of the same system
+    g = graphs[1]
+    e_j, e_k = g.edges()
+    b = g.bind(src, vt)
+
+    def t64(a):
+        return torch.from_numpy(np.asarray(a, np.float64))
+
+    A0 = torch.eye(3, dtype=torch.float64).repeat(g.n_nodes, 1, 1)
+    A, t, _ = dgmod.gn_core(A0, torch.zeros(g.n_nodes, 3, dtype=torch.float64),
+                            t64(np.array(g.g)), torch.from_numpy(e_j).long(),
+                            torch.from_numpy(e_k).long(), t64(src), t64(dst),
+                            torch.from_numpy(b.ids).long(), t64(b.w),
+                            torch.ones(len(src), dtype=torch.float64), 10)
+    bv = g.bind(verts, vtimes)
+    ref = dgmod.deform(A, t, t64(np.array(g.g)), t64(verts), torch.from_numpy(bv.ids).long(),
+                       t64(bv.w)).numpy()
+    spread = np.abs(out[1] - ref).max()
+    assert np.abs(out[0] - out[1]).max() <= spread + 1e-4, (np.abs(out[0] - out[1]).max(), spread)
+    # one graph's apply on both devices
+    graphs[1].device = card
+    again = graphs[1].apply(verts, graphs[1].bind(verts, vtimes))
+    np.testing.assert_allclose(again, out[1], atol=1e-5)
+
+
+def test_loop_refinement_on_the_card_follows_the_cpu(card):
+    """place_recognition.refine_loop on the card against the CPU, on two
+    lap frames 0.2 m apart started 2 cm off: the same pose within 1e-4 m
+    and 1e-3 degrees (float32 reductions in another order), and both
+    within 1.5 mm of the truth (the CPU measured 0.84 mm)."""
+    from kintinuous_tpu_torch.backend.place_recognition import refine_loop
+    from kintinuous_tpu_torch.config import KintinuousConfig
+    from kintinuous_tpu_torch.io.synth import lap_scene, lap_trajectory
+
+    cfg = KintinuousConfig()
+    poses = lap_trajectory()
+    d1, d2 = (render_frame(lap_scene(), cfg.camera, poses[i], 6.0,
+                           np.random.default_rng(i))[0] for i in (60, 64))
+    T_gt = np.linalg.inv(poses[60]) @ poses[64]
+    off = np.eye(4)
+    off[:3, 3] = [0.012, -0.01, 0.012]
+    out = [refine_loop(cfg, d1, d2, T_gt @ off, d)[0] for d in (card, "cpu")]
+
+    def gap(A, B):
+        E = np.linalg.inv(A) @ B
+        cos = np.clip((np.trace(E[:3, :3]) - 1) / 2, -1, 1)
+        return np.linalg.norm(E[:3, 3]), np.degrees(np.arccos(cos))
+
+    m, deg = gap(*out)
+    assert m <= 1e-4 and deg <= 1e-3, (m, deg)
+    assert all(gap(T, T_gt)[0] < 1.5e-3 for T in out)

@@ -62,7 +62,9 @@ RUNTIME_MODULES = [
     "runtime/stopwatch.py", "backend/native_ops.py", "backend/slice_proc.py",
     "io/klg.py", "io/tum.py", "io/pcd.py", "io/synth.py", "tracking/odometry.py",
     "ops/rgbd.py", "ops/surface_nets.py", "backend/meshing.py", "io/ply.py",
-    "tools/proto_integrate.py",
+    "tools/proto_integrate.py", "backend/features.py", "backend/place_recognition.py",
+    "backend/pose_graph.py", "backend/deformation.py", "backend/deform_runner.py",
+    "eval/loop_gate.py",
 ]
 
 
@@ -126,15 +128,13 @@ def test_tracker_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What is still unported raises, naming it: online deformation
-    (-od), live capture (-live), the web viewer (--viz-port) and several
-    devices."""
+    """What is still unported raises, naming it: live capture (-live),
+    the web viewer (--viz-port) and several devices."""
     from kintinuous_tpu_torch import cli
     from kintinuous_tpu_torch.runtime.engine import SlamEngine
     from kintinuous_tpu_torch.tracking.tracker import Tracker
 
-    for kw, name in (({"online_deformation": True}, "online_deformation"),
-                     ({"live_source": "tcp://localhost:1"}, "live_source"),
+    for kw, name in (({"live_source": "tcp://localhost:1"}, "live_source"),
                      ({"devices": 2}, "devices")):
         with pytest.raises(NotImplementedError, match=name):
             SlamEngine(pcfg.tiny_test_config(fast_mode=True, **kw), device="cpu")
