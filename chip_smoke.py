@@ -89,11 +89,28 @@ prediction, 16-voxel shifts, ICP odometry):
      PlaceRecognition and Deformation span means, the ORB's ms for each
      keyframe and the refinement's for each loop, fps and peak device
      memory;
+ 12. the pallas=False step (the JAX package's non-Pallas fast step: the
+     same fusion, no mirror, the gather raycast ops/raycast_fast.py):
+     (a) one frame of the gather raycast on the card against the CPU at
+     config A, within the CPU tests' tolerances, timed on the card beside
+     its pair texture's bytes; (b) phase 2's orbit for 24 frames (ATE <
+     1 cm, ICP inliers > 2000, fallback 0) and 2 more under the profiler
+     (the kt.raycast host ms, device busy ms);
+ 13. live capture with the web viewer: the port's SyntheticSensorServer
+     streams one ping-pong period of phase 2's orbit (22 poses) at 30 Hz
+     over a UNIX socket, looping, colour as raw bytes; the CLI in
+     process, `-live <sock> -n 60 --fast -fod -t 16 --viz-port 0`, while
+     a client polls every endpoint of the viewer each 0.5 s and toggles
+     pause twice: 60 poses, ATE < 1 cm against the received frames'
+     ground truth, ICP inliers > 2000, every endpoint 200, the panes'
+     sizes, state.json's frame advancing and holding while paused;
+     fps, frames sent, received and dropped, each endpoint's latency;
 
 and checks that each run of phases 2-4, 6, 7 and 11 launched K1-K4,
 phase 5 the rebuild, phase 8 the four probes, phase 9 K1, K2, K4 and K5
-once a frame and K3 never, and phase 10 no kernel, with the counts set
-to 0 before each path.
+once a frame and K3 never, phase 10 no kernel, phase 12 K1 and K2 once
+a frame and K3-K5 never, and phase 13 K1-K4 once a frame and K5 never,
+with the counts set to 0 before each path.
 `--trace FRAMES`
 then profiles that many further orbit frames (where a frame's time
 goes: host ms untraced and traced, device busy ms and idle share, host
@@ -118,6 +135,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from collections import defaultdict
 
 import numpy as np
@@ -160,6 +178,13 @@ LAP_KW = dict(length=3.2, depth=2.4, step=0.055, turn_frames=26, warmup_frames=1
 LAP_FRAMES = 419
 LAP_NOISE_MM = 6.0
 ORB_CHECK_FRAME = 100  # the lap frame of phase 11's ORB check
+GATHER_ORBIT_FRAMES = 24  # phase 12b
+GATHER_TRACE_FRAMES = 2  # phase 12b's profiled frames
+LIVE_FRAMES = 60  # phase 13
+LIVE_FPS = 30.0  # the sensor's rate
+VIEWER_POLL_S = 0.5  # the viewer page's poll period
+VIEWER_ENDPOINTS = ("/", "/state.json", "/cloud.bin", "/mesh.bin", "/pane/rgb.png",
+                    "/pane/depth.png", "/pane/model.png", "/pane/model_depth.png")
 # checks that failed in a phase whose later checks and readings still
 # run; main prints the kernel line, then exits non-zero
 FAILED: list = []
@@ -1099,6 +1124,29 @@ def dense_cli(cfg, dev, card: str, log_dir: str) -> dict:
     return res
 
 
+def device_work(prof) -> tuple:
+    """From a torch.profiler run: {name: [count, us]} of the device-side
+    events (kernels, copies and fills; a range's own annotation on the
+    device timeline, which carries its stage name, left out) and the ms
+    the device was busy, the union of their intervals."""
+    import torch
+
+    kernels = defaultdict(lambda: [0, 0.0])
+    spans = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in STAGES:
+            kernels[e.name][0] += 1
+            kernels[e.name][1] += e.time_range.elapsed_us()
+            spans.append((e.time_range.start, e.time_range.end))
+    busy_us = 0.0
+    end = -np.inf
+    for s, t in sorted(spans):
+        if t > end:
+            busy_us += t - max(s, end)
+            end = t
+    return kernels, busy_us / 1e3
+
+
 def profile_orbit(cfg, dev, frames, card: str, n: int, phase: str = "profile",
                   warm: int = 8) -> dict:
     """Where a tracked orbit frame's time goes: `warm` warm-up frames, `n`
@@ -1128,36 +1176,22 @@ def profile_orbit(cfg, dev, frames, card: str, n: int, phase: str = "profile",
         frames_through(warm + n, warm + 2 * n)
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    kernels = defaultdict(lambda: [0, 0.0])  # name -> [count, us]
-    spans = []
+    kernels, busy = device_work(prof)
     stage_us = defaultdict(float)
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in STAGES:
-            # device-side events: kernels, copies and fills (a range's own
-            # annotation on the device timeline carries its stage name)
-            kernels[e.name][0] += 1
-            kernels[e.name][1] += e.time_range.elapsed_us()
-            spans.append((e.time_range.start, e.time_range.end))
-        elif e.name in STAGES and e.device_type == torch.autograd.DeviceType.CPU:
+        if e.name in STAGES and e.device_type == torch.autograd.DeviceType.CPU:
             stage_us[e.name] += e.time_range.elapsed_us()
-    busy_us = 0.0
-    end = -np.inf
-    for s, t in sorted(spans):  # union of kernel intervals
-        if t > end:
-            busy_us += t - max(s, end)
-            end = t
-    busy = busy_us / 1e3 if spans else None
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
     res = dict(
         phase=phase, card=card, frames=n,
         host_ms_per_frame=plain_ms / n,
         traced_host_ms_per_frame=wall_ms / n,
-        device_busy_ms_per_frame=busy / n if spans else None,
+        device_busy_ms_per_frame=busy / n if kernels else None,
         # device work per frame does not change under the profiler, the
         # host's does: the idle share of an untraced frame, and of the
         # traced window itself
-        device_idle_share=1.0 - busy / plain_ms if spans else None,
-        device_idle_share_traced=1.0 - busy / wall_ms if spans else None,
+        device_idle_share=1.0 - busy / plain_ms if kernels else None,
+        device_idle_share_traced=1.0 - busy / wall_ms if kernels else None,
         kernel_launches_per_frame=sum(c for c, _ in kernels.values()) / n,
         stage_host_ms_per_frame={k: stage_us[k] / 1e3 / n for k in STAGES},
         top_kernels=[{"name": k[:80], "per_frame": c / n, "ms_per_frame": us / 1e3 / n}
@@ -1528,9 +1562,296 @@ def od_lap(cfg, dev, card: str, lap: LapLog, log_dir: str) -> dict:
     return res
 
 
+# ------------------------------------------------------- phases 12, 13
+
+def gather_card_vs_cpu(cfg, dev, frames, poses, card: str) -> dict:
+    """Phase 12a: the gather raycast of the pallas=False step
+    (ops/raycast_fast.py), one frame on the card and on the CPU from the
+    same inputs at config A: a volume fused from three ground-truth views
+    of phase 2's orbit on the card, copied to the CPU, and the fourth
+    view's half-resolution measured depth as the warm start. Held to the
+    CPU tests' tolerances against the JAX package
+    (tests/test_torch_raycast_fast.py): hit masks differ on at most 0.1 %
+    of pixels; where both hit, depth within 1e-5 m on at least 99.9 %,
+    median normal dot above 0.9999. Times the call on the card: the CUDA
+    event window from a cold L2 and warm (the launch work is longer than
+    the window's lead, so these hold the host's pace), host ms with its
+    launch work, and under the profiler the device's busy ms and its
+    launches."""
+    import torch
+
+    from kintinuous_tpu_torch.ops.blocked import BlockedVolume
+    from kintinuous_tpu_torch.ops.raycast_fast import raycast_fast
+    from kintinuous_tpu_torch.tracking.tracker import Tracker, preprocess_frame
+
+    gcfg = cfg.replace(pallas=False)
+    tr = Tracker(gcfg, device=dev)
+    for i in range(3):
+        tr.process_frame(*frames[i], i * 33333,
+                         ext_delta=gt_delta(poses[i - 1] if i else None, poses[i]))
+    tr.flush()
+    st = tr.state
+    assert st.logical is None, "the pallas=False step kept a mirror"
+    T = st.pose @ torch.from_numpy(gt_delta(poses[2], poses[3])).to(dev)
+    d, c = (torch.from_numpy(np.asarray(x)).to(dev) for x in frames[3])
+    _, _, depth_half, _ = preprocess_frame(gcfg, d, c)
+    cam = gcfg.camera.at_level(1)
+    args = (gcfg.voxel_size, gcfg.volume_size, gcfg.trunc_dist)
+
+    def call():
+        return raycast_fast(st.vol, cam, T, None, depth_half, *args)
+
+    rk = call()
+    cpu_vol = BlockedVolume(*(x.cpu() for x in st.vol))
+    t0 = time.perf_counter()
+    rc = raycast_fast(cpu_vol, cam, T.cpu(), None, depth_half.cpu(), *args)
+    cpu_s = time.perf_counter() - t0
+    dk, dc = rk.depth.cpu(), rc.depth
+    hk, hc = dk > 0, dc > 0
+    both = hk & hc
+    flips = float((hk != hc).float().mean())
+    within = float(((dk - dc)[both].abs() <= 1e-5).float().mean())
+    dots = (rk.nmap.cpu()[:, both] * rc.nmap[:, both]).sum(dim=0)
+    R = gcfg.volume_resolution
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    kernels, busy = device_work(prof)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    res = dict(phase="gather_card_vs_cpu", card=card, resolution=R,
+               hits=int(hk.sum()), hit_flip_share=flips, depth_within_1e5_share=within,
+               depth_max_abs_err=float((dk - dc)[both].abs().max()),
+               normal_dot_median=float(dots.median()), normal_dot_min=float(dots.min()),
+               pair_texture_bytes=R ** 3 * 2 * 2,
+               card_device_ms=time_ms(call, reps=5, mode="cold"),
+               card_device_ms_warm_l2=time_ms(call, reps=5, mode="warm"),
+               card_host_ms=time_ms(call, reps=5, mode="host"),
+               card_busy_ms=busy, launches=sum(c for c, _ in kernels.values()),
+               top_device_ms={k[:60]: us / 1e3 for k, (_, us) in top},
+               cpu_seconds=cpu_s)
+    print(json.dumps(res), flush=True)
+    assert int(hk.sum()) > 0.5 * hk.numel(), "the gather raycast found few hits"
+    assert flips <= 1e-3 and within >= 0.999 and res["normal_dot_median"] > 0.9999, res
+    return res
+
+
+def gather_orbit(cfg, dev, frames, poses, card: str) -> dict:
+    """Phase 12b: phase 2's orbit through the pallas=False step for
+    GATHER_ORBIT_FRAMES frames: ATE < 1 cm, ICP inliers > 2000 on each of
+    the last 10 frames, no ray answered by the measurement (fallback 0),
+    no mirror."""
+    res = track_orbit(cfg.replace(pallas=False), dev, frames, poses, card,
+                      GATHER_ORBIT_FRAMES, "gather_orbit")
+    assert not res["keeps_mirror"], "the pallas=False step kept a mirror"
+    assert res["raycast_fallback_mean"] == 0.0, res["raycast_fallback_mean"]
+    return res
+
+
+def _png_info(png: bytes) -> tuple:
+    """(width, height, bit depth, colour type, the inflated IDAT bytes)."""
+    assert png[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(png):
+        n = int.from_bytes(png[pos:pos + 4], "big")
+        kind, data = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            ihdr = data
+        elif kind == b"IDAT":
+            idat += data
+        pos += 12 + n
+    w, h = int.from_bytes(ihdr[0:4], "big"), int.from_bytes(ihdr[4:8], "big")
+    return w, h, ihdr[8], ihdr[9], zlib.decompress(idat)
+
+
+def live_viewer(cfg, dev, card: str, frames, poses, log_dir: str,
+                per_frame_ms: list) -> dict:
+    """Phase 13: live capture with the web viewer. The port's
+    SyntheticSensorServer streams one ping-pong period of phase 2's
+    orbit (22 poses, the server's renders looked up in phase 2's frames)
+    at LIVE_FPS over a UNIX socket, looping, colour as raw bytes
+    (io/klg._encode_rgb and _decode_rgb replaced in this process: the
+    card's machine has no JPEG codec). The CLI runs in process: `-live
+    <sock> -n 60 --fast -fod -t 16 --viz-port 0`, at config A. A client
+    polls the viewer every VIEWER_POLL_S as its page does, fetching every
+    endpoint, and toggles pause twice. LIVE_FRAMES poses with ATE < 1 cm
+    against the ground truth of the frames received (a timestamp gives
+    the frame's index, the index its ping-pong pose) and ICP inliers >
+    2000 on the last 10; every endpoint answered 200, the page holds a
+    canvas, state.json's frame advances and holds still while paused, the
+    panes are PNGs of the input's and the prediction's sizes, the model
+    pane's pixels are not all zero, cloud.bin's length agrees with its
+    count. Reports fps, frames sent, received and dropped, each
+    endpoint's latency (median, maximum) and the processFrame mean
+    beside phase 4's per-frame runs'."""
+    import threading
+    import urllib.request
+
+    from kintinuous_tpu_torch import cli
+    from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
+    from kintinuous_tpu_torch.io import klg, synth
+    from kintinuous_tpu_torch.io.live import LiveLogReader, SyntheticSensorServer
+    from kintinuous_tpu_torch.runtime import engine as engine_mod
+    from kintinuous_tpu_torch.viz import server as vs
+
+    cam = cfg.camera
+    n_period = 2 * (len(poses) - 1)
+    period = [poses[pingpong(i, len(poses))] for i in range(n_period)]
+    rendered = {np.asarray(T).tobytes(): f for T, f in zip(poses, frames)}
+    seen = {}
+
+    class Reader(LiveLogReader):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["reader"] = self
+
+    def spy_viewer(self, *a, **k):
+        viewer_init(self, *a, **k)
+        seen["viewer"] = self
+        started.set()
+
+    def spy_close(self):
+        # the run is over: the client ends its round before the viewer goes
+        finished.set()
+        th.join(timeout=120)
+        viewer_close(self)
+
+    def spy_run(self, *a, **k):
+        seen["engine"] = self
+        out = engine_run(self, *a, **k)
+        seen["fps"] = self.fps  # the engine's own clock
+        return out
+
+    lat = {p: [] for p in VIEWER_ENDPOINTS}
+    codes, bodies, frames_seen, paused_frames = {}, {}, [], []
+    started, finished = threading.Event(), threading.Event()
+    client_err = []
+
+    def fetch(port, path, data=None):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                     method="POST" if data else "GET")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body, code = r.read(), r.status
+        return code, body, (time.perf_counter() - t0) * 1e3
+
+    def client():
+        try:
+            started.wait(600)
+            port, toggled = seen["viewer"].port, False
+            # the input panes exist from the first frame on
+            while json.loads(fetch(port, "/state.json")[1])["frame"] < 1:
+                time.sleep(0.1)
+            while not finished.is_set():
+                for path in VIEWER_ENDPOINTS:
+                    code, body, ms = fetch(port, path)
+                    lat[path].append(ms)
+                    codes.setdefault(path, set()).add(code)
+                    bodies[path] = body
+                frames_seen.append(json.loads(bodies["/state.json"])["frame"])
+                if not toggled and frames_seen[-1] >= 5:
+                    toggled = True
+                    fetch(port, "/control", json.dumps({"cmd": "pause"}).encode())
+                    for _ in range(2):
+                        time.sleep(VIEWER_POLL_S + 0.1)
+                        st = json.loads(fetch(port, "/state.json")[1])
+                        paused_frames.append((st["frame"], st["status"]))
+                    fetch(port, "/control", json.dumps({"cmd": "pause"}).encode())
+                time.sleep(VIEWER_POLL_S)
+        except Exception as e:  # raised below, on the phase's thread
+            client_err.append(e)
+
+    encode, decode, render = klg._encode_rgb, klg._decode_rgb, synth.render_frame
+    viewer_init, viewer_close = vs.ViewerServer.__init__, vs.ViewerServer.close
+    engine_run, reader_cls = engine_mod.SlamEngine.run, engine_mod.LiveLogReader
+    klg._encode_rgb = lambda rgb, quality=90: np.ascontiguousarray(rgb).tobytes()
+    klg._decode_rgb = lambda buf: np.frombuffer(buf, np.uint8).reshape(
+        cam.height, cam.width, 3)
+    synth.render_frame = lambda scene, c, T: rendered[np.asarray(T).tobytes()]
+    sock = f"{log_dir}/sensor.sock"
+    srv = None
+    try:
+        srv = SyntheticSensorServer(sock, cam, period, fps=LIVE_FPS, loop=True)
+        synth.render_frame = render
+        vs.ViewerServer.__init__, vs.ViewerServer.close = spy_viewer, spy_close
+        engine_mod.SlamEngine.run, engine_mod.LiveLogReader = spy_run, Reader
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        argv = ["-live", sock, "-n", str(LIVE_FRAMES), "--fast", "-fod", "-t", "16",
+                "--viz-port", "0", "-o", f"{log_dir}/live", "-c", f"{log_dir}/calib.txt",
+                "-s", str(cfg.volume_size), "--resolution", str(cfg.volume_resolution),
+                "--device", str(dev)]
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rc = cli.main(argv)
+        finally:
+            finished.set()
+            th.join(timeout=120)
+        seconds = time.perf_counter() - t0
+    finally:
+        klg._encode_rgb, klg._decode_rgb, synth.render_frame = encode, decode, render
+        vs.ViewerServer.__init__, vs.ViewerServer.close = viewer_init, viewer_close
+        engine_mod.SlamEngine.run, engine_mod.LiveLogReader = engine_run, reader_cls
+        if srv is not None:
+            srv.close()
+    if client_err:
+        raise client_err[0]
+    eng, rdr = seen["engine"], seen["reader"]
+    tr = eng.tracker
+    idx = [round(ts * LIVE_FPS / 1e6) for ts in tr.stamps_us]
+    gt = np.array([period[k % n_period] for k in idx])
+    stamps = np.arange(len(idx)) / LIVE_FPS
+    ate, n = absolute_trajectory_error(stamps, gt, stamps, np.array(tr.poses))
+    icp_min = min(tr.stats["icp_count"][-10:])
+    panes = {}
+    for name in ("rgb", "depth", "model", "model_depth"):
+        w, h, bits, kind, raw = _png_info(bodies[f"/pane/{name}.png"])
+        rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)
+        panes[name] = dict(size=[w, h], bits=bits, colour_type=kind,
+                           nonzero=int((rows[:, 1:] != 0).sum()))
+    cloud = bodies["/cloud.bin"]
+    n_cloud = int.from_bytes(cloud[:4], "little")
+    stats = eng.sw.stats()
+    res = dict(
+        phase="live_viewer", card=card, rc=rc, frames=len(tr.poses), seconds=seconds,
+        fps=seen["fps"], ate_m=ate, matched=n, icp_count_min_last10=icp_min,
+        frames_sent=srv.frames_sent, frames_received=rdr.frames_received,
+        frames_dropped=rdr.dropped_frames,
+        process_frame_mean_ms=stats["processFrame"]["mean_ms"],
+        phase4_per_frame_process_frame_mean_ms=per_frame_ms,
+        viewer_polls=len(frames_seen), viewer_frames=frames_seen,
+        paused_reads=paused_frames,
+        endpoint_ms={p: {"median": statistics.median(v), "max": max(v), "n": len(v)}
+                     for p, v in lat.items() if v},
+        status_codes={p: sorted(c) for p, c in codes.items()},
+        panes=panes, cloud_points=n_cloud, cloud_bytes=len(cloud),
+        viewer_url=[ln for ln in out.getvalue().splitlines() if "viewer:" in ln])
+    print(json.dumps(res), flush=True)
+    assert rc == 0 and len(tr.poses) == LIVE_FRAMES and n == LIVE_FRAMES, res["frames"]
+    assert ate < 0.01, f"live ATE {ate * 100:.2f} cm"
+    assert icp_min > 2000, "ICP lost tracking"
+    assert all(c == [200] for c in res["status_codes"].values()), res["status_codes"]
+    assert set(res["status_codes"]) == set(VIEWER_ENDPOINTS)
+    assert b"<canvas" in bodies["/"]
+    assert len(set(frames_seen)) > 1, f"state.json's frame did not advance: {frames_seen}"
+    assert len(paused_frames) == 2 and paused_frames[0] == paused_frames[1] \
+        and paused_frames[0][1] == "paused", paused_frames
+    for name, size in (("rgb", [cam.width, cam.height]), ("depth", [cam.width, cam.height]),
+                       ("model", [cam.width // 2, cam.height // 2]),
+                       ("model_depth", [cam.width // 2, cam.height // 2])):
+        assert panes[name]["size"] == size and panes[name]["bits"] == 8, (name, panes[name])
+    assert panes["model"]["nonzero"] > 0, "the model pane is black"
+    assert len(cloud) == 4 + 15 * n_cloud, (len(cloud), n_cloud)
+    return res
+
+
 def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     """All phases on `dev`; returns the kernel rows with the launch
-    counts of the paths phases 2-11 drive (each engine run is a path)."""
+    counts of the paths phases 2-13 drive (each engine run is a path)."""
     import tempfile
 
     from kintinuous_tpu_torch.io.synth import Scene, orbit_trajectory, render_frame
@@ -1563,7 +1884,7 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
 
 
 def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, d) -> list:
-    """Phases 2-11, each path with the launch counts set to 0 just before
+    """Phases 2-13, each path with the launch counts set to 0 just before
     it and read just after."""
     from kintinuous_tpu_torch.backend import native_ops
     from kintinuous_tpu_torch.config import KintinuousConfig
@@ -1589,8 +1910,8 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
     write_engine_log(cfg, d)
     # batched and per frame, in the order A B B A, so that a drift of
     # the host's speed during the phase falls on both alike
-    for path, batched in ENGINE_RUNS:
-        counted(path, engine_cli, cfg, dev, card, d, batched)
+    engine_res = {path: counted(path, engine_cli, cfg, dev, card, d, batched)
+                  for path, batched in ENGINE_RUNS}
     counted("resume", resume, cfg, dev, walk_poses, walk_frames, card)
     counted("orbit_rgbd", track_orbit_rgbd, cfg.replace(icp_plus_rgbd=True), dev,
             frames, poses, card)
@@ -1620,6 +1941,16 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
             "dense_resume")
     # online deformation on bench C's lap
     counted("od_lap", od_lap, cfg, dev, card, lap, d)
+    # pallas=False: the gather raycast, no mirror
+    gather = cfg.replace(pallas=False)
+    counted("gather_check", gather_card_vs_cpu, cfg, dev, frames, poses, card)
+    counted("gather_orbit", gather_orbit, cfg, dev, frames, poses, card)
+    counted("gather_profile", profile_orbit, gather, dev, frames, card, GATHER_TRACE_FRAMES,
+            "gather_profile", 2)
+    # live capture from the sensor server, with the web viewer
+    per_frame_ms = [engine_res[p]["span_mean_ms"]["processFrame"]
+                    for p, batched in ENGINE_RUNS if not batched]
+    counted("live_viewer", live_viewer, cfg, dev, card, frames, poses, d, per_frame_ms)
     for path in DENSE_PATHS:
         launched = {k: n for k, n in by_path[path].items() if n}
         assert not launched, f"the {path} path launched {launched}"
@@ -1637,6 +1968,18 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
         assert by_path[path]["mirror_refresh"] == 0, f"the {path} path refreshed a mirror"
     for name in ("probe_rows", "probe_dma", "probe_full", "probe_dyn"):
         assert by_path["probe_tool"][name] > 0, f"the probe tool did not launch {name}"
+    # pallas=False: K1 and K2 once a frame, K3, K4 and K5 never
+    for path, n_frames in (("gather_check", 3), ("gather_orbit", GATHER_ORBIT_FRAMES),
+                           ("gather_profile", 2 + 2 * GATHER_TRACE_FRAMES)):
+        want = {"band_fusion": n_frames, "free_carve": n_frames, "mirror_refresh": 0,
+                "tile_raycast": 0, "build_mirror": 0}
+        got = {k: by_path[path][k] for k in want}
+        assert got == want, f"the {path} path launched {got}, want {want}"
+    # the live run: K1-K4 once a frame, K5 never
+    want = {"band_fusion": LIVE_FRAMES, "free_carve": LIVE_FRAMES,
+            "mirror_refresh": LIVE_FRAMES, "tile_raycast": LIVE_FRAMES, "build_mirror": 0}
+    got = {k: by_path["live_viewer"][k] for k in want}
+    assert got == want, f"the live_viewer path launched {got}, want {want}"
     for name in wrappers:
         rows[name]["launches"] = sum(p[name] for p in by_path.values())
         rows[name]["launches_by_path"] = {k: p[name] for k, p in by_path.items()}

@@ -2,7 +2,8 @@
 JAX package's (kintinuous_tpu/cli.py):
 
     -l  <log.klg>      input log
-    -live <addr>       live capture                       (not ported)
+    -live <addr>       live capture from a sensor daemon's socket (a UNIX
+                       socket path or host:port; io/live.py)
     -p  <traj>         ground-truth trajectory replay
     -v  <vocab.npy>    BoW vocabulary (used only with -od; one trained by the
                        port's detector, features.train_vocab_from_klg)
@@ -34,11 +35,13 @@ and --fast (the blocked fast path with the CUDA kernels and batched
 offline dispatch; without it the dense path runs, frame by frame, as
 the JAX CLI's default), --resolution, --trunc, --frame-limit, --prior,
 --profile-dir (a torch.profiler chrome trace), --dump-tsdf, --devices
-(1 only), --num-processes (1 only), --viz-port (not ported), and
+(1 only), --num-processes (1 only), --viz-port (the live web viewer on
+this port of 127.0.0.1, 0 for a free one; its URL is printed), and
 --device (cpu to run the kernels' plain PyTorch versions; default the
 CUDA card).
 
 Usage: python -m kintinuous_tpu_torch.cli -l seq.klg [--fast] [-m] -o map
+       python -m kintinuous_tpu_torch.cli -live sensor.sock --fast --viz-port 0
 """
 
 from __future__ import annotations
@@ -99,7 +102,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--frame-limit", dest="frame_limit", action="store_true")
     p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--viz-port", dest="viz_port", type=int, default=None,
-                   help="live web viewer (not ported)")
+                   help="serve the live web viewer on this port (0: a free one)")
     p.add_argument("--fast", dest="fast_mode", action="store_true",
                    help="blocked fast path: sparse TSDF updates, warm raycast, "
                         "batched dispatch")
@@ -120,8 +123,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 _UNPORTED = (  # (flag, argparse dest, is-set test)
-    ("-live", "live_source", bool),
-    ("--viz-port", "viz_port", lambda v: v is not None),
     ("--devices > 1", "devices", lambda v: v > 1),
     ("--num-processes > 1", "num_processes", lambda v: v > 1),
 )
@@ -175,6 +176,21 @@ def main(argv=None) -> int:
     from kintinuous_tpu_torch.runtime.engine import SlamEngine
 
     engine = SlamEngine(cfg, device=a.device)
+    viewer = None
+    if a.viz_port is not None:
+        from kintinuous_tpu_torch.viz.server import ViewerServer
+
+        viewer = ViewerServer(engine, port=a.viz_port)
+        print(f"viewer: http://127.0.0.1:{viewer.port}/", flush=True)
+    try:
+        return _run(a, cfg, engine)
+    finally:
+        if viewer is not None:
+            viewer.close()
+
+
+def _run(a, cfg: KintinuousConfig, engine) -> int:
+    """Run the engine to its end, save, and report."""
     prof = contextlib.nullcontext()
     if a.profile_dir:
         import torch

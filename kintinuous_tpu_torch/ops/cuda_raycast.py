@@ -30,7 +30,7 @@ from kintinuous_tpu_torch.config import CameraIntrinsics
 from kintinuous_tpu_torch.ops import kernels as K
 from kintinuous_tpu_torch.ops import maps as map_ops
 from kintinuous_tpu_torch.ops.blocked import BLOCK, blocked_to_dense, flat_index
-from kintinuous_tpu_torch.ops.raycast_fast import FastRaycastResult
+from kintinuous_tpu_torch.ops.raycast_fast import FastRaycastResult, ray_directions
 from kintinuous_tpu_torch.ops.reduce import round_to_int
 from kintinuous_tpu_torch.ops.tsdf import unpack_cw
 
@@ -281,20 +281,7 @@ def ray_setup(cam: CameraIntrinsics, T, measured_depth):
     (h,w; 0 = none) that the raycast kernel marches around: the measured
     depth's, as the JAX package's fast step warms without a previous
     prediction (its _warm_start with prev_vmap=None)."""
-    h, w = cam.height, cam.width
-    dev = measured_depth.device
-    Rot = T[:3, :3]
-    u = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    rx = (u - cam.cx) / cam.fx
-    ry = (v - cam.cy) / cam.fy
-    lam = torch.sqrt(rx * rx + ry * ry + 1.0)
-    ones = torch.ones((h, w), dtype=torch.float32, device=dev)
-    d_cam = torch.stack([rx * ones, ry * ones, ones], dim=0)
-    d = torch.einsum("ij,jhw->ihw", Rot, d_cam)
-    dn = d / torch.sqrt(torch.sum(d * d, dim=0, keepdim=True))
-    cos_z = torch.einsum("j,jhw->hw", Rot[:, 2], dn)
-
+    dn, cos_z, lam = ray_directions(cam, T)
     t_warm = torch.where(measured_depth > 0, measured_depth * lam, 0.0).contiguous()
     return dn, cos_z, t_warm
 

@@ -22,8 +22,15 @@ accepted one to the deformation. Then `save` writes the deformed map
 mesh (`<base>_opt.ply`), once a loop was accepted. Each worker thread
 runs its torch work on a CUDA stream of its own, beside the frame loop's.
 
+A live source (-live, `io/live.LiveLogReader`) takes the per-frame
+loop: each frame is the newest the sensor has sent, and the run stops
+at cfg.total_num_frames when that is above 0, or when the stream ends.
+Both loops keep the last frame they fed (`last_frame`, the viewer's
+input panes) and hold `frame_lock` for each frame or batch, so that the
+viewer's save and reset run between two frames.
+
 Not ported yet, and raising NotImplementedError rather than running
-something else: several devices or processes, live capture.
+something else: several devices or processes.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from kintinuous_tpu_torch.config import KintinuousConfig
 from kintinuous_tpu_torch.device import resolve_device
 from kintinuous_tpu_torch.geometry import se3
 from kintinuous_tpu_torch.io.klg import KlgLogReader
+from kintinuous_tpu_torch.io.live import LiveLogReader
 from kintinuous_tpu_torch.io.tum import TrajectoryWriter, load_trajectory, save_trajectory
 from kintinuous_tpu_torch.runtime.stopwatch import Stopwatch
 from kintinuous_tpu_torch.tracking.odometry import GroundTruthOdometry
@@ -58,7 +66,6 @@ def check_engine_supported(cfg: KintinuousConfig) -> None:
     for name, unported in (
         ("devices > 1", cfg.devices > 1),
         ("num_processes > 1", cfg.num_processes > 1),
-        ("live_source", bool(cfg.live_source)),
     ):
         if unported:
             raise NotImplementedError(f"{name}: not ported to kintinuous_tpu_torch yet")
@@ -104,6 +111,9 @@ class SlamEngine:
         self.cfg = cfg
         self.device = device
         self.sw = Stopwatch(port=cfg.telemetry_port)
+        # held by the frame loop for each frame (or batch); a reset
+        # rebuilds the engine under it, so it is made once, here
+        self.frame_lock = threading.RLock()
         self._build()
 
     def _build(self):
@@ -137,6 +147,7 @@ class SlamEngine:
         self.paused = threading.Event()
         self._frames_done = 0
         self._t_start = 0.0
+        self.last_frame = None  # (depth u16, rgb u8 or None) last fed
 
     # ----------------------------------------------------------- stages
     def _slice_stage(self) -> bool:
@@ -219,10 +230,11 @@ class SlamEngine:
             time.sleep(0.05)
 
     def run(self, progress: Optional[Callable[[int, int], None]] = None) -> "SlamEngine":
-        """Process cfg.log_file to its end (or to complete())."""
+        """Process cfg.log_file to its end, or cfg.live_source to
+        cfg.total_num_frames (or its end), or either to complete()."""
         cfg = self.cfg
-        if not cfg.log_file:
-            raise ValueError("SlamEngine.run needs cfg.log_file")
+        if not cfg.log_file and not cfg.live_source:
+            raise ValueError("SlamEngine.run needs cfg.log_file or cfg.live_source")
         dev = self.tracker.device
         self.workers = [Worker("SliceProcessor", self._slice_stage, self.sw, dev)]
         if self.place_rec is not None:
@@ -235,7 +247,7 @@ class SlamEngine:
         if cfg.trajectory_file:
             gt = GroundTruthOdometry(*load_trajectory(cfg.trajectory_file))
         if (cfg.fast_mode and cfg.offline_batched and gt is None
-                and not cfg.frame_rate_limit):
+                and not cfg.frame_rate_limit and not cfg.live_source):
             self._run_batched(progress)
         else:
             self._run_per_frame(gt, progress)
@@ -245,26 +257,35 @@ class SlamEngine:
         cfg, cam = self.cfg, self.cfg.camera
         self._t_start = time.perf_counter()
         frame_budget = 1.0 / cfg.frame_rate_limit if cfg.frame_rate_limit else None
-        with KlgLogReader(cfg.log_file, width=cam.width, height=cam.height,
-                          max_frames=cfg.total_num_frames) as reader:
+        live = bool(cfg.live_source)
+        if live:
+            reader_cm = LiveLogReader(cfg.live_source, width=cam.width, height=cam.height)
+        else:
+            reader_cm = KlgLogReader(cfg.log_file, width=cam.width, height=cam.height,
+                                     max_frames=cfg.total_num_frames)
+        with reader_cm as reader:
             for frame in reader:
                 t0 = time.perf_counter()
                 delta = gt.delta(frame.timestamp) if gt is not None else None
                 rgb = frame.rgb
                 if cfg.flip_colors and rgb is not None:
                     rgb = rgb[..., ::-1]  # BGR logs (-f)
-                with self.sw.span("processFrame"):
-                    self.tracker.process_frame(frame.depth, rgb, frame.timestamp,
-                                               ext_delta=delta)
-                self._frames_done += 1
-                self._frame_done(frame.depth, rgb, frame.timestamp)
-                self._publish()
+                with self.frame_lock:
+                    self.last_frame = (frame.depth, rgb)
+                    with self.sw.span("processFrame"):
+                        self.tracker.process_frame(frame.depth, rgb, frame.timestamp,
+                                                   ext_delta=delta)
+                    self._frames_done += 1
+                    self._frame_done(frame.depth, rgb, frame.timestamp)
+                    self._publish()
                 if progress:
                     progress(self._frames_done, reader.total_num_frames)
                 if frame_budget:
                     spare = frame_budget - (time.perf_counter() - t0)
                     if spare > 0:
                         time.sleep(spare)
+                if live and 0 < cfg.total_num_frames <= self._frames_done:
+                    break
                 if self.stop_requested.is_set():
                     break
                 self._wait_while_paused()
@@ -330,19 +351,23 @@ class SlamEngine:
                     raise item[1]
                 self._wait_while_paused()
                 kind, frames, total, up = item
-                if kind == "batch":
-                    with self.sw.span("processFrame"):
-                        self.tracker.process_batch_device(*up)
-                else:  # the first frame, or the partial tail: frame by frame
-                    for fr in frames:
+                with self.frame_lock:
+                    self.last_frame = frames[-1][:2]
+                    # a batch after a reset goes frame by frame: a fresh
+                    # tracker's first frame takes the identity
+                    if kind == "batch" and self.tracker._frame_idx > 0:
                         with self.sw.span("processFrame"):
-                            self.tracker.process_frame(*fr)
-                    if kind == "first":
-                        self.tracker.flush()
-                self._frames_done += len(frames)
-                for fr in frames:
-                    self._frame_done(*fr)
-                self._publish()
+                            self.tracker.process_batch_device(*up)
+                    else:  # the first frame, or the partial tail
+                        for fr in frames:
+                            with self.sw.span("processFrame"):
+                                self.tracker.process_frame(*fr)
+                        if kind == "first":
+                            self.tracker.flush()
+                    self._frames_done += len(frames)
+                    for fr in frames:
+                        self._frame_done(*fr)
+                    self._publish()
                 if progress:
                     progress(self._frames_done, total)
         finally:

@@ -11,7 +11,10 @@ refresh, and the warm-started raycast that predicts the next frame's
 maps. The volume and the mirror are updated in place; the RGB-D pyramid
 of the frame is carried to the next one in the state. A volume with an
 odd number of blocks an edge keeps no mirror (`keeps_mirror`): the
-raycast rebuilds it from the volume every frame.
+raycast rebuilds it from the volume every frame. With `cfg.pallas`
+False the step is the JAX package's non-Pallas one: the same fusion,
+no mirror, and the gather raycast (`ops/raycast_fast.py`) in place of
+the kernel raycast.
 
 The dense step (`make_step`, fast_mode off: the JAX CLI's default, a
 run without --fast): full-resolution pyramids and odometry against a
@@ -70,6 +73,7 @@ from kintinuous_tpu_torch.ops.cuda_integrate import integrate_cuda
 from kintinuous_tpu_torch.ops.cuda_raycast import raycast_cuda
 from kintinuous_tpu_torch.ops.extract import extract_points, extract_points_packed
 from kintinuous_tpu_torch.ops.raycast import raycast
+from kintinuous_tpu_torch.ops.raycast_fast import raycast_fast
 from kintinuous_tpu_torch.ops.rgbd import (
     RGBDFramePyramid,
     build_rgbd_pyramid,
@@ -133,12 +137,13 @@ _AXIS_DIM = {
 
 
 def keeps_mirror(cfg: KintinuousConfig) -> bool:
-    """Whether the step keeps the dense bf16 mirror current (K3): only
-    with an even number of blocks an edge, as the refresh works on
-    (bz, by) row-pairs. Otherwise the state carries no mirror and the
-    raycast rebuilds one from the volume every frame (K5), as the JAX
-    package's Tracker does (its logical0 = None)."""
-    return (cfg.volume_resolution // 8) % 2 == 0
+    """Whether the step keeps the dense bf16 mirror current (K3): not
+    with pallas=False, whose gather raycast reads the volume itself, and
+    only with an even number of blocks an edge, as the refresh works on
+    (bz, by) row-pairs. Otherwise the state carries no mirror, as the
+    JAX package's Tracker does (its logical0 = None), and the kernel
+    raycast rebuilds one from the volume every frame (K5)."""
+    return cfg.pallas is not False and (cfg.volume_resolution // 8) % 2 == 0
 
 
 def preprocess_frame(cfg: KintinuousConfig, depth_raw, rgb_raw, half: bool = True):
@@ -319,6 +324,10 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
     SLAB_B = max(2, -(-(S + OV + 1) // 8))  # block-planes around a band
     B_grid = R // 8
     use_rgbd = cfg.rgbd_odometry or cfg.icp_plus_rgbd
+    # pallas=False: the JAX package's non-Pallas step, whose raycast is
+    # the gather raycast (window 6, two Newton steps) and which keeps no
+    # mirror; None or True run the kernels
+    gather = cfg.pallas is False
 
     def extract_axis(vol, axis: int, s: int):
         """Points of the band leaving along `axis`, from a band-leading
@@ -399,11 +408,15 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
             )
         with record_function("kt.raycast"):
             # warm start from the measured depth only (as the JAX package)
-            rc = raycast_cuda(
-                vol, cam_half, pose, depth_half, vsz, cfg.volume_size,
-                cfg.trunc_dist, mirror=state.logical,
-                newton=cfg.raycast_newton_iters,
-            )
+            if gather:
+                rc = raycast_fast(vol, cam_half, pose, None, depth_half, vsz,
+                                  cfg.volume_size, cfg.trunc_dist)
+            else:
+                rc = raycast_cuda(
+                    vol, cam_half, pose, depth_half, vsz, cfg.volume_size,
+                    cfg.trunc_dist, mirror=state.logical,
+                    newton=cfg.raycast_newton_iters,
+                )
         pose_global = pose.clone()
         pose_global[:3, 3] += vol.origin
         new_state = state._replace(

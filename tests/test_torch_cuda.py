@@ -585,3 +585,77 @@ def test_loop_refinement_on_the_card_follows_the_cpu(card):
     m, deg = gap(*out)
     assert m <= 1e-4 and deg <= 1e-3, (m, deg)
     assert all(gap(T, T_gt)[0] < 1.5e-3 for T in out)
+
+
+@pytest.mark.parametrize("warm", ["measured", "previous"])
+def test_gather_raycast_on_the_card_follows_the_cpu(frame_on_card, warm):
+    """ops/raycast_fast (pallas=False) on the card against the CPU on the
+    same volume and maps, at tests/test_torch_raycast_fast.py's
+    tolerances: hit masks differ on <= 0.1 % of pixels; where both hit,
+    depth within 1e-5 m on >= 99.9 %, median normal dot > 0.9999. Warm
+    from the measurement, and from the state's previous prediction."""
+    from kintinuous_tpu_torch.ops.blocked import BlockedVolume
+    from kintinuous_tpu_torch.ops.raycast_fast import raycast_fast
+
+    cfg, st, T, depth_half, _, _, _ = frame_on_card
+    cam = CAM.at_level(1)
+    prev = st.pred_vmap if warm == "previous" else None
+    args = (cfg.voxel_size, cfg.volume_size, cfg.trunc_dist)
+    a = raycast_fast(st.vol, cam, T, prev, depth_half, *args)
+    cpu = BlockedVolume(*(x.cpu() for x in st.vol))
+    b = raycast_fast(cpu, cam, T.cpu(), None if prev is None else prev.cpu(),
+                     depth_half.cpu(), *args)
+    da, db = a.depth.cpu().numpy(), b.depth.numpy()
+    ha, hb = da > 0, db > 0
+    assert hb.mean() > 0.3
+    assert (ha != hb).mean() <= 1e-3
+    both = ha & hb
+    assert (np.abs(da[both] - db[both]) <= 1e-5).mean() >= 0.999
+    dots = np.sum(a.nmap.cpu().numpy()[:, both] * b.nmap.numpy()[:, both], axis=0)
+    assert np.median(dots) > 0.9999
+
+
+def test_gather_tracker_on_the_card_follows_the_cpu(card):
+    """pallas=False on the card: six tracked frames within 1e-4 of the
+    CPU's, no mirror, K1 and K2 once a frame, K3, K4 and K5 never."""
+    cfg = cfg_small().replace(pallas=False)
+    poses = orbit_trajectory(6, radius=0.06, angle_deg=3.0)
+    frames = [render_frame(Scene.default(), CAM, T) for T in poses]
+    wrappers = (band_fusion, free_carve, mirror_refresh, tile_raycast, build_mirror)
+    runs = []
+    for dev in (card, "cpu"):
+        before = [w.launches for w in wrappers]
+        tr = Tracker(cfg, device=dev)
+        for i, f in enumerate(frames):
+            tr.process_frame(*f, i * 33333)
+        tr.flush()
+        runs.append(tr)
+        if dev == card:
+            moved = [w.launches - b for w, b in zip(wrappers, before)]
+            assert moved == [len(frames), len(frames), 0, 0, 0], moved
+    assert runs[0].state.logical is None
+    np.testing.assert_allclose(np.array(runs[0].poses), np.array(runs[1].poses), atol=1e-4)
+    assert max(runs[0].stats["raycast_fallback"]) == 0.0
+
+
+@pytest.mark.parametrize("mode", ["shaded", "color", "heat", "depth"])
+def test_model_renders_on_the_card_follow_the_cpu(card, frame_on_card, mode):
+    """ops/image.py on the card against the CPU on the state's prediction:
+    equal on >= 99.9 % of pixels, never more than 1 apart."""
+    from kintinuous_tpu_torch.ops.image import generate_depth, generate_image
+
+    _, st, _, _, _, _, _ = frame_on_card
+    g = torch.Generator().manual_seed(0)
+    h, w = st.pred_vmap.shape[1:]
+    color = torch.rand((3, h, w), generator=g) * 255.0
+    weight = torch.rand((h, w), generator=g) * 140.0
+
+    def render(dev):
+        vmap, nmap = st.pred_vmap.to(dev), st.pred_nmap.to(dev)
+        if mode == "depth":
+            return generate_depth(torch.nan_to_num(vmap[2]), 6.0).cpu()
+        return generate_image(vmap, nmap, color.to(dev), weight.to(dev), mode=mode).cpu()
+
+    a, b = render(card).int(), render("cpu").int()
+    assert (a != b).any(dim=-1).float().mean() <= 1e-3
+    assert (a - b).abs().max() <= 1

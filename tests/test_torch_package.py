@@ -64,7 +64,8 @@ RUNTIME_MODULES = [
     "ops/rgbd.py", "ops/surface_nets.py", "backend/meshing.py", "io/ply.py",
     "tools/proto_integrate.py", "backend/features.py", "backend/place_recognition.py",
     "backend/pose_graph.py", "backend/deformation.py", "backend/deform_runner.py",
-    "eval/loop_gate.py",
+    "eval/loop_gate.py", "ops/raycast_fast.py", "ops/image.py", "io/live.py",
+    "viz/png.py", "viz/headless.py", "viz/server.py",
 ]
 
 
@@ -127,19 +128,23 @@ def test_tracker_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
     assert Tracker(cfg, device="cpu").device.type == "cpu"
 
 
-def test_unported_options_raise():
-    """What is still unported raises, naming it: live capture (-live),
-    the web viewer (--viz-port) and several devices."""
+def test_unported_options_raise(tmp_path):
+    """What is still unported raises, naming it: several devices. Live
+    capture (-live) and the web viewer (--viz-port) are ported: their
+    flags build a configuration and an engine."""
     from kintinuous_tpu_torch import cli
     from kintinuous_tpu_torch.runtime.engine import SlamEngine
     from kintinuous_tpu_torch.tracking.tracker import Tracker
 
-    for kw, name in (({"live_source": "tcp://localhost:1"}, "live_source"),
-                     ({"devices": 2}, "devices")):
-        with pytest.raises(NotImplementedError, match=name):
-            SlamEngine(pcfg.tiny_test_config(fast_mode=True, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="--viz-port"):
-        cli.build_config(["-l", "seq.klg", "--fast", "--viz-port", "8000"])
+    with pytest.raises(NotImplementedError, match="devices"):
+        SlamEngine(pcfg.tiny_test_config(fast_mode=True, devices=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="--devices"):
+        cli.build_config(["-l", "seq.klg", "--fast", "--devices", "2"])
+    live = pcfg.tiny_test_config(fast_mode=True, live_source="localhost:1",
+                                 save_file=str(tmp_path / "out"))
+    assert SlamEngine(live, device="cpu").cfg.live_source == "localhost:1"
+    cfg = cli.build_config(["-live", "sensor.sock", "--fast", "--viz-port", "8000"])
+    assert cfg.live_source == "sensor.sock" and cfg.fast_mode
     # ported now: fused ICP+RGB-D and meshing build a tracker
     cfg = pcfg.tiny_test_config(fast_mode=True, icp_plus_rgbd=True, mesh=True,
                                 volume_resolution=32)
