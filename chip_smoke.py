@@ -25,9 +25,9 @@ prediction, 16-voxel shifts, ICP odometry):
      the volume: shifts fire, their slices hold points, ATE < 1 mm;
   4. runs the CLI (`--fast -fod -t 16`) in process on a depth-only .klg
      of a 48-frame walk 1.2 m backwards, the batched offline engine, and
-     the same engine frame by frame (offline_batched=False), twice each
-     in the order A B B A: 48 poses, ATE < 1 cm, shifts, a .pcd with
-     points, and each run's fps;
+     the same engine frame by frame (offline_batched=False), once each
+     (A B): 48 poses, ATE < 1 cm, shifts, a .pcd with points, and each
+     run's fps;
   5. resumes phase 3's walk from a checkpoint saved after 20 frames (the
      restore rebuilds the mirror): the mirror, tsdf, cw, wrap, origin
      and poses continue exactly;
@@ -53,7 +53,7 @@ prediction, 16-voxel shifts, ICP odometry):
      KintinuousConfig() with fast_mode off, 512^3 over 6 m, 640x480,
      plain PyTorch): (a) one frame's integrate and raycast on the card
      against the CPU at 256^3, within the CPU tests' tolerances; (b)
-     phase 2's orbit for 24 frames (ATE < 1 cm, ICP inliers > 2000; fps,
+     phase 2's orbit for 12 frames (ATE < 1 cm, ICP inliers > 2000; fps,
      peak device memory) and 2 more under the profiler (launches a
      frame, device busy ms); (c) phase 3's walk (ATE < 1 mm, slices hold
      points); (d) the CLI with `-m` and no --fast on phase 4's log (ATE <
@@ -105,12 +105,28 @@ prediction, 16-voxel shifts, ICP odometry):
      ground truth, ICP inliers > 2000, every endpoint 200, the panes'
      sizes, state.json's frame advancing and holding while paused;
      fps, frames sent, received and dropped, each endpoint's latency;
+ 14. several slabs and processes (parallel/): (a) K1 and K2 on the 4
+     z-slabs of phase 1's volume given a wrap, against their plain
+     versions and, concatenated, against the whole volume bit for bit,
+     a slab's K1 timed; (b) the fast sharded tracker on 4 slabs of the
+     card at config A: phase 2's orbit for 12 frames and phase 3's walk
+     against the single-card tracker with pallas=False (poses, volume,
+     slices, FINAL slice), fps, and the orbit replayed on both with the
+     sharded run's tracked poses (the whole volume); (c) the dense
+     sharded tracker on 4 slabs at 256^3 against the dense single-card
+     tracker, tracked and replayed likewise; (d) the CLI with
+     `--num-processes 2` as two processes sharing the card, against
+     phase 4's single-process run, and the distributed pose graph in two
+     more processes against PoseGraph;
 
 and checks that each run of phases 2-4, 6, 7 and 11 launched K1-K4,
 phase 5 the rebuild, phase 8 the four probes, phase 9 K1, K2, K4 and K5
 once a frame and K3 never, phase 10 no kernel, phase 12 K1 and K2 once
-a frame and K3-K5 never, and phase 13 K1-K4 once a frame and K5 never,
-with the counts set to 0 before each path.
+a frame and K3-K5 never, phase 13 K1-K4 once a frame and K5 never,
+phase 14a K1 and K2 only, phase 14b K1 and K2 4 times a frame (once a
+slab; 5 in the replay, which runs the single card too) and K3-K5 never, and phase 14c none, with the counts set to 0
+before each path. A {"phase_seconds": ...} line gives each phase's
+host seconds.
 `--trace FRAMES`
 then profiles that many further orbit frames (where a frame's time
 goes: host ms untraced and traced, device busy ms and idle share, host
@@ -158,12 +174,12 @@ WALK_FRAMES = 40
 ODD_RESOLUTION = 504  # phase 9: 63 blocks an edge
 ODD_ORBIT_FRAMES = 24
 ENGINE_FRAMES = 48
-# phase 4's engine runs: (path, batched), batched and per frame as A B B A
-ENGINE_RUNS = (("engine", True), ("engine_per_frame", False),
-               ("engine_per_frame_2", False), ("engine_2", True))
+# phase 4's engine runs: (path, batched), batched and per frame as A B
+# (the second pair of A B B A went to phase 14's time)
+ENGINE_RUNS = (("engine", True), ("engine_per_frame", False))
 RESUME_AT = 20  # phases 5 and 10e save after this many frames of the walk
 DENSE_CHECK_RESOLUTION = 256  # phase 10a: card against CPU
-DENSE_ORBIT_FRAMES = 24  # phase 10b
+DENSE_ORBIT_FRAMES = 12  # phase 10b (24 before phase 14 took its time)
 DENSE_TRACE_FRAMES = 2  # phase 10b's profiled frames
 DENSE_PATHS = ("dense_check", "dense_orbit", "dense_profile", "dense_walk", "dense_cli",
                "dense_resume")
@@ -183,11 +199,17 @@ GATHER_TRACE_FRAMES = 2  # phase 12b's profiled frames
 LIVE_FRAMES = 60  # phase 13
 LIVE_FPS = 30.0  # the sensor's rate
 VIEWER_POLL_S = 0.5  # the viewer page's poll period
+SLABS = 4  # phase 14: z-slabs of the sharded steps, all on the one card
+SHARDED_ORBIT_FRAMES = 12  # phase 14b
+ORBIT_PLACED = 3  # phases 14b and 14c: orbit frames placed by their ground truth
+DENSE_SHARDED_FRAMES = 12  # phase 14c
 VIEWER_ENDPOINTS = ("/", "/state.json", "/cloud.bin", "/mesh.bin", "/pane/rgb.png",
                     "/pane/depth.png", "/pane/model.png", "/pane/model_depth.png")
 # checks that failed in a phase whose later checks and readings still
 # run; main prints the kernel line, then exits non-zero
 FAILED: list = []
+# host seconds of each phase (and each path of phases 2-14), in order
+PHASE_SECONDS: dict = {}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1849,6 +1871,425 @@ def live_viewer(cfg, dev, card: str, frames, poses, log_dir: str,
     return res
 
 
+# ------------------------------------------------------------- phase 14
+
+def _slab_mesh(dev):
+    from kintinuous_tpu_torch.parallel.mesh import SlabMesh
+
+    return SlabMesh([dev] * SLABS)
+
+
+def slab_kernels(cfg, dev, frames, poses, card: str, rows: dict) -> dict:
+    """Phase 14a: K1 and K2 on z-slabs, as each slab of the sharded fast
+    step runs them. Phase 1's bare-room volume (four ground-truth views)
+    and its fifth view's inputs (the replay with pallas=False, which fuses
+    the same volume with K1 and K2 only), the volume given a wrap of (8, 16, 24)
+    voxels; SLABS slabs of Bz = B/SLABS block-planes (offsets 0, 16, 32,
+    48 at 512^3). Per slab: the plan over its rows, K1 against its plain
+    version (weights equal, tsdf within 1.2e-7), K2 bit-exact against
+    its plain version. The slabs' kernel results, concatenated, equal
+    K1 and K2 on the whole volume at the same wrap bit for bit. One
+    slab's K1 (the one with the most band blocks) is timed as phase 1
+    times K1; its row joins K1's kernel row."""
+    import torch
+
+    from kintinuous_tpu_torch.ops.blocked import BLOCK, BlockedVolume
+    from kintinuous_tpu_torch.ops.cuda_integrate import (
+        band_fusion, band_fusion_plain, free_carve, free_carve_plain, integrate_plan)
+    from kintinuous_tpu_torch.tracking.tracker import Tracker, preprocess_frame
+
+    cam = cfg.camera
+    R, B = cfg.volume_resolution, cfg.volume_resolution // BLOCK
+    Bz = B // SLABS
+    n_rows = Bz * B * B
+    vsz, trunc, mw = cfg.voxel_size, cfg.trunc_dist, float(cfg.max_weight)
+    # phase 1's replay; pallas=False fuses the same volume and launches
+    # no mirror refresh and no raycast kernel
+    tr = Tracker(cfg.replace(pallas=False), device=dev)
+    for i in range(4):
+        tr.process_frame(*frames[i], i * 33333,
+                         ext_delta=gt_delta(poses[i - 1] if i else None, poses[i]))
+    tr.flush()
+    st = tr.state
+    d, c = (torch.from_numpy(np.asarray(x)).to(dev) for x in frames[4])
+    T = st.pose @ torch.from_numpy(gt_delta(poses[3], poses[4])).to(dev)
+    depth_m, rgb, _, color_w = preprocess_frame(cfg, d, c)
+    wrap = torch.tensor([8, 16, 24], dtype=torch.int32, device=dev)
+    whole = BlockedVolume(st.vol.tsdf.clone(), st.vol.cw.clone(), wrap, st.vol.origin)
+    del tr, st
+    per, outs = [], []
+    for i in range(SLABS):
+        part = slice(i * n_rows, (i + 1) * n_rows)
+        sl = BlockedVolume(whole.tsdf[part].clone(), whole.cw[part].clone(), wrap,
+                           whole.origin)
+        tables, lists, params = integrate_plan(
+            sl, cam, depth_m, rgb, color_w, T, vsz, trunc, n_rows, n_rows,
+            resolution=R, z_block_offset=i * Bz)
+        assert float(params[15]) == i * Bz
+        res = []
+        for fuse, carve in ((band_fusion, free_carve), (band_fusion_plain, free_carve_plain)):
+            t, cw = sl.tsdf.clone(), sl.cw.clone()
+            fuse(t, cw, tables.img_rows, lists.band_ids, lists.n_band, params, cam, vsz,
+                 trunc, mw, R)
+            t_k1 = t.clone()
+            carve(t, cw, lists.free_ids, lists.n_free, mw)
+            res.append((t, cw, t_k1))
+        (tk, ck, tk1), (tp, cp, tp1) = res
+        nb, nf = int(lists.n_band), int(lists.n_free)
+        w_equal = bool(torch.equal((ck >> 24) & 0xFF, (cp >> 24) & 0xFF))
+        t_err = float((tk1 - tp1).abs().max())
+        per.append(dict(slab=i, z_block_offset=i * Bz, band_blocks=nb, free_blocks=nf,
+                        weights_equal=w_equal, tsdf_max_abs_err=t_err))
+        outs.append((tk, ck, sl, tables, lists, params))
+        check(w_equal and t_err <= 1.2e-7, f"K1 on slab {i}: weights equal {w_equal}, "
+              f"tsdf err {t_err}")
+    wt, wl, wp = integrate_plan(whole, cam, depth_m, rgb, color_w, T, vsz, trunc, B ** 3,
+                                B ** 3)
+    band_fusion(whole.tsdf, whole.cw, wt.img_rows, wl.band_ids, wl.n_band, wp, cam, vsz,
+                trunc, mw)
+    free_carve(whole.tsdf, whole.cw, wl.free_ids, wl.n_free, mw)
+    cat_t = torch.cat([o[0] for o in outs])
+    cat_c = torch.cat([o[1] for o in outs])
+    bit_equal = bool(torch.equal(cat_t.view(torch.int32), whole.tsdf.view(torch.int32))
+                     and torch.equal(cat_c, whole.cw))
+    # the slab with the most band blocks, timed as phase 1 times K1
+    k = max(range(SLABS), key=lambda j: per[j]["band_blocks"])
+    _, _, sl, tables, lists, params = outs[k]
+    nb = per[k]["band_blocks"]
+    t, cw = sl.tsdf.clone(), sl.cw.clone()
+    b_ms, b_by = bound(nb * 512 * 16 + tables.img_rows.numel() * 4 + nb * 4,
+                       nb * 512 * OPS_BAND_VOXEL)
+    slab_ms = time_ms(lambda: band_fusion(t, cw, tables.img_rows, lists.band_ids,
+                                          lists.n_band, params, cam, vsz, trunc, mw, R))
+    res = dict(phase="slab_kernels", card=card, slabs=SLABS, block_planes_per_slab=Bz,
+               wrap=[8, 16, 24], per_slab=per, whole_band_blocks=int(wl.n_band),
+               whole_free_blocks=int(wl.n_free), concatenated_bit_equal=bit_equal,
+               timed_slab=k, slab_ms=slab_ms, slab_bound_ms=b_ms, slab_bound_by=b_by,
+               slab_bound_share=b_ms / slab_ms)
+    print(json.dumps(res), flush=True)
+    rows["band_fusion"].update(slab_ms=slab_ms, slab_blocks=nb, slab_bound_ms=b_ms,
+                               slab_bound_share=b_ms / slab_ms)
+    check(bit_equal, "K1 and K2 on the slabs, concatenated, differ from the whole volume's")
+    # the room's surfaces lie ahead of the camera, so after the wrap the
+    # band covers several slabs (the one behind the camera has none)
+    check(sum(p["free_blocks"] for p in per) > 0
+          and sum(1 for p in per if p["band_blocks"] and p["z_block_offset"]) >= 2,
+          f"no free block, or band blocks on fewer than two offset slabs: {per}")
+    return res
+
+
+def _logical_dense(vol):
+    """A volume's logical [z,y,x] tsdf on its device (the wrap undone)."""
+    import torch
+
+    from kintinuous_tpu_torch.ops.blocked import as_dense
+
+    v = as_dense(vol)
+    w = [int(x) for x in v.wrap.tolist()]
+    return torch.roll(v.tsdf, shifts=(-w[2], -w[1], -w[0]), dims=(0, 1, 2))
+
+
+def _uncapped(cfg):
+    """Phase 14b's configuration: config A with the band cap at the
+    volume's block count. Each slab of the sharded step caps its band
+    list at min(cfg.band_cap, its rows) (as the JAX package's does) and
+    the single card caps the whole volume's at cfg.band_cap, so with the
+    cap reached the two drop different blocks (phase 3's walk reaches
+    8192); with no cap reached they fuse the same blocks."""
+    return cfg.replace(band_cap=(cfg.volume_resolution // 8) ** 3)
+
+
+def _orbit_frames(tr, frames, poses, lo: int, hi: int) -> None:
+    """Phase 2's orbit, frames lo..hi-1: the first ORBIT_PLACED placed by
+    their ground truth, the rest tracked."""
+    for i in range(lo, hi):
+        k, prev = pingpong(i, len(frames)), pingpong(i - 1, len(frames))
+        delta = (gt_delta(poses[prev] if i else None, poses[k]) if i < ORBIT_PLACED
+                 else None)
+        tr.process_frame(*frames[k], i * 33333, ext_delta=delta)
+    tr.flush()
+
+
+def _replay_deltas(tracked) -> list:
+    """The frame-to-frame deltas of a tracked trajectory, for a replay
+    (frame 0's is the identity a first frame takes)."""
+    return [gt_delta(tracked[i - 1] if i else None, T) for i, T in enumerate(tracked)]
+
+
+def _replay(tr, frames, deltas) -> None:
+    """Phase 2's orbit replayed on `tr` with the given deltas."""
+    for i, delta in enumerate(deltas):
+        tr.process_frame(*frames[pingpong(i, len(frames))], i * 33333, ext_delta=delta)
+    tr.flush()
+
+
+def sharded_reference(cfg, dev, frames, poses, walk_poses, walk_frames) -> dict:
+    """Phase 14b's references: the single-card Tracker with pallas=False
+    (the gather raycast JAX's multichip test holds its sharded step to)
+    at _uncapped(cfg), on phase 2's orbit for SHARDED_ORBIT_FRAMES
+    frames and on phase 3's ground-truth walk, finalised."""
+    from kintinuous_tpu_torch.tracking.tracker import Tracker
+
+    orbit = Tracker(_uncapped(cfg).replace(pallas=False), device=dev)
+    _orbit_frames(orbit, frames, poses, 0, SHARDED_ORBIT_FRAMES)
+    walk = Tracker(_uncapped(cfg).replace(pallas=False), device=dev)
+    for i, T in enumerate(walk_poses):
+        walk.process_frame(*walk_frames[i], i * 33333,
+                           ext_delta=gt_delta(walk_poses[i - 1] if i else None, T))
+    walk.flush()
+    final = walk.finalise()
+    return dict(orbit_poses=np.array(orbit.poses),
+                orbit_tsdf=_logical_dense(orbit.state.vol), walk_poses=walk_poses,
+                walk_frames=walk_frames,
+                walk=dict(poses=np.array(walk.poses), shifts=np.array(walk.shift_log),
+                          slices=[(s.dimension, s.points) for s in walk.slices[:-1]],
+                          final=final.points))
+
+
+def _sorted_rows(a):
+    return a[np.lexsort((a[:, 2], a[:, 1], a[:, 0]))]
+
+
+def sharded_orbit(cfg, dev, frames, poses, card: str, ref: dict) -> dict:
+    """Phase 14b, orbit: the fast sharded tracker, SLABS slabs on the one
+    card, config A at full width (_uncapped), phase 2's orbit for
+    SHARDED_ORBIT_FRAMES frames, the first ORBIT_PLACED placed by their
+    ground truth: the tracked poses within 5e-4 m of the single-card
+    pallas=False tracker's, ATE < 1 cm, ICP inliers > 2000, and at the
+    end the share of voxels whose tsdf differs from the single card's by
+    more than 1e-3 at most 1e-5 (tracked poses that differ in their last
+    digits move a voxel on a pixel boundary, or a block on a class
+    boundary; sharded_replay holds the whole volume with the poses the
+    same); fps. The tracked poses go into `ref` for sharded_replay."""
+    import torch
+
+    from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
+    from kintinuous_tpu_torch.parallel.tracker import ShardedTracker
+
+    tr = ShardedTracker(_uncapped(cfg), mesh=_slab_mesh(dev))
+    t0 = time.perf_counter()
+    _orbit_frames(tr, frames, poses, 0, SHARDED_ORBIT_FRAMES)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    gt = [poses[pingpong(i, len(frames))] for i in range(SHARDED_ORBIT_FRAMES)]
+    stamps = np.arange(len(gt)) * 33333 / 1e6
+    ate, n = absolute_trajectory_error(stamps, np.array(gt),
+                                       np.array(tr.stamps_us) / 1e6, np.array(tr.poses))
+    pose_errs = np.abs(np.array(tr.poses) - ref["orbit_poses"]).reshape(len(tr.poses), -1)
+    pose_err = float(pose_errs.max())
+    diff = (_logical_dense(tr.state.vol) - ref["orbit_tsdf"]).abs()
+    share = float((diff > 1e-3).float().mean())
+    icp_min = min(tr.stats["icp_count"][ORBIT_PLACED:])
+    ref["sharded_orbit_poses"] = np.array(tr.poses)
+    res = dict(phase="sharded_orbit", card=card, slabs=SLABS, frames=SHARDED_ORBIT_FRAMES,
+               placed_frames=ORBIT_PLACED, seconds=elapsed,
+               fps=SHARDED_ORBIT_FRAMES / elapsed, ate_m=ate, matched=n,
+               icp_count_min_tracked=icp_min, pose_max_abs_err_vs_single=pose_err,
+               pose_max_abs_err_by_frame=pose_errs.max(axis=1).tolist(),
+               tsdf_max_abs_err_end=float(diff.max()), tsdf_share_beyond_1e3_end=share,
+               raycast_fallback_mean=float(np.mean(tr.stats["raycast_fallback"])))
+    print(json.dumps(res), flush=True)
+    check(pose_err <= 5e-4 and share <= 1e-5,
+          f"sharded orbit: poses {pose_err}, volume share beyond 1e-3 {share}")
+    check(n == SHARDED_ORBIT_FRAMES and ate < 0.01 and icp_min > 2000,
+          f"sharded orbit: ATE {ate}, inliers {icp_min}")
+    return res
+
+
+def sharded_replay(cfg, dev, frames, card: str, ref: dict) -> dict:
+    """Phase 14b, replay: the orbit replayed with the sharded tracker's
+    own tracked poses (their frame-to-frame deltas) on both the fast
+    sharded tracker (SLABS slabs, one card) and the single-card
+    pallas=False tracker, so that both fuse every frame at the same
+    pose: the poses within 1e-6 and the whole logical volume within
+    1e-3 at the end, every voxel."""
+    from kintinuous_tpu_torch.parallel.tracker import ShardedTracker
+    from kintinuous_tpu_torch.tracking.tracker import Tracker
+
+    deltas = _replay_deltas(ref["sharded_orbit_poses"])
+    single = Tracker(_uncapped(cfg).replace(pallas=False), device=dev)
+    sharded = ShardedTracker(_uncapped(cfg), mesh=_slab_mesh(dev))
+    for tr in (single, sharded):
+        _replay(tr, frames, deltas)
+    pose_err = float(np.abs(np.array(sharded.poses) - np.array(single.poses)).max())
+    vol_err = float((_logical_dense(sharded.state.vol)
+                     - _logical_dense(single.state.vol)).abs().max())
+    res = dict(phase="sharded_replay", card=card, slabs=SLABS, frames=len(deltas),
+               pose_max_abs_err=pose_err, tsdf_max_abs_err=vol_err)
+    print(json.dumps(res), flush=True)
+    check(len(sharded.poses) == SHARDED_ORBIT_FRAMES and pose_err <= 1e-6
+          and vol_err <= 1e-3, f"sharded replay: {res}")
+    return res
+
+
+def sharded_walk(cfg, dev, card: str, ref: dict) -> dict:
+    """Phase 14b, walk: phase 3's 40-frame ground-truth walk on the fast
+    sharded tracker (SLABS slabs, one card, _uncapped), which shifts the
+    volume: the shift log equal to the single-card tracker's, each
+    slice's point count equal and its points within 1e-4 m, the FINAL
+    slice too, ATE < 1 mm; fps."""
+    import torch
+
+    from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
+    from kintinuous_tpu_torch.parallel.tracker import ShardedTracker
+
+    walk_poses, walk_frames, want = ref["walk_poses"], ref["walk_frames"], ref["walk"]
+    tr = ShardedTracker(_uncapped(cfg), mesh=_slab_mesh(dev))
+    t0 = time.perf_counter()
+    for i, T in enumerate(walk_poses):
+        tr.process_frame(*walk_frames[i], i * 33333,
+                         ext_delta=gt_delta(walk_poses[i - 1] if i else None, T))
+    tr.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    final = tr.finalise()
+    stamps = np.arange(WALK_FRAMES) * 33333 / 1e6
+    ate, n = absolute_trajectory_error(stamps, np.array(walk_poses),
+                                       np.array(tr.stamps_us) / 1e6, np.array(tr.poses))
+    got = [(s.dimension, s.points) for s in tr.slices[:-1]]
+    same_dims = [d for d, _ in got] == [d for d, _ in want["slices"]]
+    counts = [(len(a), len(b)) for (_, a), (_, b) in zip(got, want["slices"])]
+    pt_err = max([float(np.abs(_sorted_rows(a) - _sorted_rows(b)).max())
+                  for (_, a), (_, b) in zip(got, want["slices"]) if len(a) == len(b)
+                  and len(a)] + [0.0])
+    final_ok = len(final.points) == len(want["final"])
+    final_err = (float(np.abs(_sorted_rows(final.points) - _sorted_rows(want["final"]))
+                       .max(initial=0.0)) if final_ok else None)
+    shifts_equal = bool(np.array_equal(np.array(tr.shift_log), want["shifts"]))
+    res = dict(phase="sharded_walk", card=card, slabs=SLABS, frames=WALK_FRAMES,
+               seconds=elapsed, fps=WALK_FRAMES / elapsed, ate_m=ate, matched=n,
+               shift_frames=sum(1 for s in tr.shift_log if np.any(s != 0)),
+               shifts_equal=shifts_equal, slice_points=[a for a, _ in counts],
+               slice_points_single=[b for _, b in counts], slice_max_abs_err=pt_err,
+               final_points=len(final.points), final_points_single=len(want["final"]),
+               final_max_abs_err=final_err,
+               pose_max_abs_err_vs_single=float(np.abs(np.array(tr.poses)
+                                                       - want["poses"]).max()))
+    print(json.dumps(res), flush=True)
+    check(shifts_equal and same_dims and all(a == b for a, b in counts) and pt_err <= 1e-4,
+          f"sharded walk slices differ from the single card's: {res}")
+    check(final_ok and final_err <= 1e-4, f"sharded walk FINAL slice: {res}")
+    check(n == WALK_FRAMES and ate < 1e-3 and res["shift_frames"] >= 1 and counts
+          and min(a for a, _ in counts) > 0, f"sharded walk: {res}")
+    return res
+
+
+def dense_sharded(cfg, dev, frames, poses, card: str) -> dict:
+    """Phase 14c: the dense sharded tracker (no --fast), SLABS slabs on
+    the one card, at phase 10a's size (256^3 over 6 m, 640x480), against
+    the dense single-card tracker within tests/test_multichip.py's
+    bounds: phase 2's orbit for DENSE_SHARDED_FRAMES frames, the first
+    ORBIT_PLACED placed by their ground truth, the tracked poses within
+    5e-4 m; then the orbit replayed on both with the sharded tracker's
+    tracked poses, so that both fuse every frame at the same pose, and
+    the whole volume held within 1e-4, every voxel; fps of both."""
+    import torch
+
+    from kintinuous_tpu_torch.config import KintinuousConfig
+    from kintinuous_tpu_torch.ops.blocked import as_dense
+    from kintinuous_tpu_torch.parallel.tracker import ShardedTracker
+    from kintinuous_tpu_torch.tracking.tracker import Tracker
+
+    cfg = KintinuousConfig(camera=cfg.camera, volume_resolution=DENSE_CHECK_RESOLUTION)
+
+    def both():
+        return {"single": Tracker(cfg, device=dev),
+                "sharded": ShardedTracker(cfg, mesh=_slab_mesh(dev))}
+
+    trackers = both()
+    seconds = dict.fromkeys(trackers, 0.0)
+    for name, tr in trackers.items():
+        t0 = time.perf_counter()
+        _orbit_frames(tr, frames, poses, 0, DENSE_SHARDED_FRAMES)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds[name] += time.perf_counter() - t0
+    single, sharded = trackers["single"], trackers["sharded"]
+    pose_err = float(np.abs(np.array(sharded.poses) - np.array(single.poses)).max())
+    replayed = both()
+    for tr in replayed.values():
+        _replay(tr, frames, _replay_deltas(np.array(sharded.poses)))
+    replay_pose_err = float(np.abs(np.array(replayed["sharded"].poses)
+                                   - np.array(replayed["single"].poses)).max())
+    vol_err = float((as_dense(replayed["sharded"].state.vol).tsdf
+                     - replayed["single"].state.vol.tsdf).abs().max())
+    res = dict(phase="dense_sharded", card=card, slabs=SLABS,
+               resolution=DENSE_CHECK_RESOLUTION, frames=DENSE_SHARDED_FRAMES,
+               fps_sharded=DENSE_SHARDED_FRAMES / seconds["sharded"],
+               fps_single=DENSE_SHARDED_FRAMES / seconds["single"],
+               pose_max_abs_err=pose_err, replay_pose_max_abs_err=replay_pose_err,
+               replay_tsdf_max_abs_err=vol_err,
+               icp_count_min_tracked=min(sharded.stats["icp_count"][ORBIT_PLACED:]))
+    print(json.dumps(res), flush=True)
+    check(pose_err <= 5e-4 and replay_pose_err <= 1e-6 and vol_err <= 1e-4,
+          f"dense sharded: {res}")
+    return res
+
+
+def two_processes(cfg, dev, card: str, log_dir: str) -> dict:
+    """Phase 14d: two processes on the one card. The CLI twice as
+    subprocesses on phase 4's log (`--fast -fod -t 16 --num-processes 2
+    --process-id i --coordinator 127.0.0.1:<free port>`, the kernels
+    built before, loaded by each): process 0's .poses within 1e-5 of
+    phase 4's single-process run with the same flags, the merged .pcd
+    holding its points (count within 2, sorted rows within 1e-4 m).
+    Beside them, tests/test_torch_multihost.py's 40-node pose graph (the
+    port's SE(3)) in two more processes on the card: DistributedPoseGraph
+    against PoseGraph in this process, poses within 1e-5. The four
+    workers run at once; a worker that fails fails the phase."""
+    import importlib.util
+
+    from kintinuous_tpu_torch.backend.pose_graph import PoseGraph
+    from kintinuous_tpu_torch.io.pcd import load_pcd
+    from kintinuous_tpu_torch.io.tum import load_trajectory
+
+    # the worker, its graph and its launcher: tests/test_torch_multihost.py,
+    # run as a script (the two groups, the CLI's and the pose graph's,
+    # start together)
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "test_torch_multihost.py")
+    spec = importlib.util.spec_from_file_location("multihost_worker", worker)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    flags = ["-l", f"{log_dir}/walk.klg", "--fast", "-fod", "-t", "16",
+             "-c", f"{log_dir}/calib.txt", "-s", str(cfg.volume_size),
+             "--resolution", str(cfg.volume_resolution), "--device", str(dev)]
+    cli_port, graph_port = mod.free_port(), mod.free_port()
+    t0 = time.perf_counter()
+    mod.run_workers([["-m", "kintinuous_tpu_torch.cli", *flags, "-o", f"{log_dir}/mp{pid}",
+                  "--num-processes", "2", "--process-id", str(pid),
+                  "--coordinator", f"127.0.0.1:{cli_port}"] for pid in range(2)]
+                + [[worker, "graph", str(pid), "2", str(graph_port), log_dir, str(dev)]
+                   for pid in range(2)], timeout=300)
+    seconds = time.perf_counter() - t0
+    s1, p1 = load_trajectory(f"{log_dir}/map_batched.poses")
+    s2, p2 = load_trajectory(f"{log_dir}/mp0.poses")
+    pose_err = float(np.abs(np.array(p2) - np.array(p1)).max())
+    c1 = load_pcd(f"{log_dir}/map_batched.pcd")["points"]
+    c2 = load_pcd(f"{log_dir}/mp0.pcd")["points"]
+    pcd_err = (float(np.abs(_sorted_rows(c2) - _sorted_rows(c1)).max())
+               if len(c1) == len(c2) else None)
+    ref = mod.build_graph(PoseGraph(device=dev))
+    ref.optimise(10)
+    got = np.load(f"{log_dir}/graph.npz")
+    graph_err = float(np.abs(got["poses"] - np.array(ref.poses)).max())
+    res = dict(phase="two_processes", card=card, workers_seconds=seconds,
+               poses=len(s2), pose_max_abs_err_vs_one_process=pose_err,
+               pcd_points=len(c2), pcd_points_one_process=len(c1), pcd_max_abs_err=pcd_err,
+               process1_wrote_pcd=os.path.exists(f"{log_dir}/mp1.pcd"),
+               graph_nodes=len(ref.poses),
+               graph_pose_max_abs_err=graph_err)
+    print(json.dumps(res), flush=True)
+    check(len(s2) == ENGINE_FRAMES and np.allclose(s2, s1, atol=1e-9) and pose_err <= 1e-5,
+          f"two processes: poses {res}")
+    check(abs(len(c2) - len(c1)) <= 2 and len(c1) > 0 and pcd_err is not None
+          and pcd_err <= 1e-4 and not res["process1_wrote_pcd"], f"two processes: map {res}")
+    check(graph_err <= 1e-5, f"distributed pose graph: {graph_err}")
+    return res
+
+
 def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     """All phases on `dev`; returns the kernel rows with the launch
     counts of the paths phases 2-13 drive (each engine run is a path)."""
@@ -1869,22 +2310,27 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     d = log_dir.name
     try:
         # phase 11's lap, rendered on every core before any timed phase
+        t0 = time.perf_counter()
         lap = LapLog(cfg.camera, d)
+        PHASE_SECONDS["lap_render"] = time.perf_counter() - t0
         poses = orbit_trajectory(12, radius=0.06, angle_deg=3.0)
         # the bare room leaves free space in front of its walls: the carve
         # gets blocks to work on (the default scene's objects sit too close
         # to the camera for any block to classify as free)
         room = [render_frame(Scene(), cfg.camera, T) for T in poses[:5]]
+        t0 = time.perf_counter()
         rows = check_kernels(cfg, dev, room, poses, card)
+        PHASE_SECONDS["kernels"] = time.perf_counter() - t0
         frames = [render_frame(Scene.default(), cfg.camera, T) for T in poses]
         return run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap,
-                         d)
+                         d, room)
     finally:
         log_dir.cleanup()
 
 
-def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, d) -> list:
-    """Phases 2-13, each path with the launch counts set to 0 just before
+def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, d,
+              room) -> list:
+    """Phases 2-14, each path with the launch counts set to 0 just before
     it and read just after."""
     from kintinuous_tpu_torch.backend import native_ops
     from kintinuous_tpu_torch.config import KintinuousConfig
@@ -1898,7 +2344,9 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
     def counted(path, fn, *args):
         for w in wrappers.values():
             w.launches = 0
+        t0 = time.perf_counter()
         out = fn(*args)
+        PHASE_SECONDS[path] = time.perf_counter() - t0
         by_path[path] = {name: w.launches for name, w in wrappers.items()}
         return out
 
@@ -1908,8 +2356,7 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
     # runs, so none of them pays for the build
     native_ops.available()
     write_engine_log(cfg, d)
-    # batched and per frame, in the order A B B A, so that a drift of
-    # the host's speed during the phase falls on both alike
+    # batched, then per frame
     engine_res = {path: counted(path, engine_cli, cfg, dev, card, d, batched)
                   for path, batched in ENGINE_RUNS}
     counted("resume", resume, cfg, dev, walk_poses, walk_frames, card)
@@ -1951,7 +2398,29 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
     per_frame_ms = [engine_res[p]["span_mean_ms"]["processFrame"]
                     for p, batched in ENGINE_RUNS if not batched]
     counted("live_viewer", live_viewer, cfg, dev, card, frames, poses, d, per_frame_ms)
-    for path in DENSE_PATHS:
+    # phase 14: several slabs on the card, and two processes sharing it.
+    # (a) K1 and K2 on slabs, against their plain versions: these
+    # launches are comparisons, counted apart from the paths
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    slab_kernels(cfg, dev, room, poses, card, rows)
+    PHASE_SECONDS["slab_kernels"] = time.perf_counter() - t0
+    slab_launches = {name: w.launches for name, w in wrappers.items()}
+    print(json.dumps({"phase": "slab_kernels_launches", "card": card,
+                      "launches": slab_launches}), flush=True)
+    assert slab_launches["band_fusion"] > 0 and slab_launches["free_carve"] > 0 and not any(
+        slab_launches[k] for k in wrappers if k not in ("band_fusion", "free_carve")), \
+        f"phase 14a launched {slab_launches}"
+    ref = counted("sharded_ref", sharded_reference, cfg, dev, frames, poses, walk_poses,
+                  walk_frames)
+    counted("sharded_orbit", sharded_orbit, cfg, dev, frames, poses, card, ref)
+    counted("sharded_replay", sharded_replay, cfg, dev, frames, card, ref)
+    counted("sharded_walk", sharded_walk, cfg, dev, card, ref)
+    del ref
+    counted("dense_sharded", dense_sharded, cfg, dev, frames, poses, card)
+    counted("two_processes", two_processes, cfg, dev, card, d)
+    for path in DENSE_PATHS + ("dense_sharded",):
         launched = {k: n for k, n in by_path[path].items() if n}
         assert not launched, f"the {path} path launched {launched}"
     for path in ("orbit", "walk", "orbit_rgbd", "engine_mesh", "od_lap") + tuple(
@@ -1980,6 +2449,15 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
             "mirror_refresh": LIVE_FRAMES, "tile_raycast": LIVE_FRAMES, "build_mirror": 0}
     got = {k: by_path["live_viewer"][k] for k in want}
     assert got == want, f"the live_viewer path launched {got}, want {want}"
+    # the fast sharded tracker: K1 and K2 once per slab per frame, K3-K5 never
+    # (the replay runs the sharded tracker and the single card: SLABS + 1)
+    for path, per_frame, n_frames in (("sharded_orbit", SLABS, SHARDED_ORBIT_FRAMES),
+                                      ("sharded_replay", SLABS + 1, SHARDED_ORBIT_FRAMES),
+                                      ("sharded_walk", SLABS, WALK_FRAMES)):
+        want = {"band_fusion": per_frame * n_frames, "free_carve": per_frame * n_frames,
+                "mirror_refresh": 0, "tile_raycast": 0, "build_mirror": 0}
+        got = {k: by_path[path][k] for k in want}
+        assert got == want, f"the {path} path launched {got}, want {want}"
     for name in wrappers:
         rows[name]["launches"] = sum(p[name] for p in by_path.values())
         rows[name]["launches_by_path"] = {k: p[name] for k, p in by_path.items()}
@@ -2006,15 +2484,20 @@ def main(argv=None) -> int:
         return 2
 
     card = card_line()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     took = kernels.build()
-    print(json.dumps({"build_seconds": time.perf_counter() - t0,
+    took_seconds = time.perf_counter() - t0
+    print(json.dumps({"build_seconds": took_seconds,
                       "per_source": took, "card": card}), flush=True)
     cfg = KintinuousConfig(fast_mode=True, voxel_shift=16, fast_odometry=True,
                            extraction_capacity=500_000)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     rows = run(cfg, dev, card, args.trace)
+    PHASE_SECONDS["build"] = took_seconds
+    print(json.dumps({"phase_seconds": PHASE_SECONDS,
+                      "total_seconds": time.perf_counter() - t_start, "card": card}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     if FAILED:

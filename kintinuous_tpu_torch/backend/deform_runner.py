@@ -1,5 +1,5 @@
 """Map correction: the pose graph and the deformation graph (port of
-kintinuous_tpu/backend/deform_runner.py, for one process).
+kintinuous_tpu/backend/deform_runner.py).
 
 The reference's Deformation thread:
   add_frame_pose  dense poses become pose-graph odometry factors
@@ -17,7 +17,9 @@ The reference's Deformation thread:
   saves           the deformed pool (`_opt.pcd`), the optimised
                   trajectory, the deformed mesh (`_opt.ply`)
 
-The GN solves run on `device` (None: the card). One lock serialises the
+The GN solves run on `device` (None: the card); with several processes
+(cfg.num_processes > 1) the pose graph is a DistributedPoseGraph, whose
+solve splits the factors over the processes. One lock serialises the
 three threads that call in: the frame loop (add_frame_pose), the slice
 worker (add_slice, add_mesh_patch) and the place-recognition worker
 (add_loop).
@@ -41,13 +43,16 @@ from kintinuous_tpu_torch.tracking.tracker import CloudSlice
 
 class MapDeformation:
     def __init__(self, cfg: KintinuousConfig, device=None):
-        if cfg.num_processes > 1:
-            raise NotImplementedError(
-                "num_processes > 1 (the distributed pose graph): not ported to "
-                "kintinuous_tpu_torch yet")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.graph = PoseGraph(device=self.device)
+        if cfg.num_processes > 1:
+            # several processes: the GN solve's factor products split over
+            # them (parallel/multihost.py)
+            from kintinuous_tpu_torch.parallel.multihost import DistributedPoseGraph
+
+            self.graph = DistributedPoseGraph(device=self.device)
+        else:
+            self.graph = PoseGraph(device=self.device)
         self.dgraph = DeformationGraph(k=cfg.deformation_k, sample_dist=cfg.dense_sampling_rate,
                                        device=self.device)
         self.slices: List[CloudSlice] = []

@@ -67,13 +67,24 @@ def _scatter(n: int, idx, vals):
     return out.index_add_(0, idx, vals)
 
 
-def gn_core(poses, fi, fj, fZinv, fw, iters: int, fl=None, huber_delta: float = 0.0):
+def gn_core(poses, fi, fj, fZinv, fw, iters: int, fl=None, huber_delta: float = 0.0,
+            reduce=None):
     """Gauss-Newton with block-Jacobi preconditioned CG on the normal
     equations, matrix-free over the factor arrays; returns (poses, chi2)
     with chi2 a 0-dim tensor on the poses' device. fl (the loop-factor
     mask) with huber_delta > 0 puts the Huber kernel on loop factors;
-    odometry factors stay quadratic."""
+    odometry factors stay quadratic.
+
+    reduce (the JAX package's axis_name): the factor arrays hold only
+    this process's share, and reduce(x) returns the sum of x over the
+    processes (parallel/multihost.DistributedPoseGraph): the gradient,
+    each CG product, the preconditioner's diagonal and chi2 are summed,
+    and the small replicated CG state then steps alike everywhere."""
     N = poses.shape[0]
+
+    def _psum(x):
+        return reduce(x) if reduce is not None else x
+
     dev, dt = poses.device, poses.dtype
     robust = fl is not None and huber_delta > 0.0
     eye6 = torch.eye(6, dtype=dt, device=dev)
@@ -100,6 +111,8 @@ def gn_core(poses, fi, fj, fZinv, fw, iters: int, fl=None, huber_delta: float = 
             u = (Ji @ x[fi][..., None] + Jj @ x[fj][..., None])[..., 0] * fw_eff[:, None]
             out = _scatter(N, fi, (JiT @ u[..., None])[..., 0])
             out.index_add_(0, fj, (JjT @ u[..., None])[..., 0])
+            out = _psum(out)
+            # gauge prior on node 0, applied once after the sum
             out[0] += 1e6 * x[0]
             return out + 1e-6 * x
 
@@ -107,11 +120,13 @@ def gn_core(poses, fi, fj, fZinv, fw, iters: int, fl=None, huber_delta: float = 
         wr = (r * fw_eff[:, None])[..., None]
         b = -_scatter(N, fi, (JiT @ wr)[..., 0])
         b.index_add_(0, fj, -(JjT @ wr)[..., 0])
+        b = _psum(b)
 
         # block-Jacobi preconditioner
         w3 = fw_eff[:, None, None]
         diag = _scatter(N, fi, JiT @ (w3 * Ji))
         diag.index_add_(0, fj, JjT @ (w3 * Jj))
+        diag = _psum(diag)
         diag[0] += 1e6 * eye6
         diag = diag + 1e-6 * eye6
         Minv, _ = torch.linalg.inv_ex(diag)
@@ -142,7 +157,7 @@ def gn_core(poses, fi, fj, fZinv, fw, iters: int, fl=None, huber_delta: float = 
     # the delta-chi2 gate sees the growth the solver optimised)
     r, _, _ = _factor_system(poses, fi, fj, fZinv)
     _, cost = eff_weight(r)
-    return poses, torch.sum(cost)
+    return poses, _psum(torch.sum(cost))
 
 
 class PoseGraph:

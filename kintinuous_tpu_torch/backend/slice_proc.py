@@ -108,18 +108,21 @@ class SliceProcessor:
             for p in parts
         ])
 
-    def save(self, path: str, deoverlap: bool = False) -> int:
+    def save(self, path: str, deoverlap: bool = False,
+             merged_payload: Optional[np.ndarray] = None) -> int:
         """Concatenate the processed slices into one .pcd; with
         deoverlap, a voxel-grid pass over the union collapses the shift
-        overlaps. Returns the number of points written."""
-        parts = [s.processed for s in self.processed if s.processed is not None]
-        if not parts:
+        overlaps. merged_payload: every process's (n, 9) local_payload,
+        merged (parallel/multihost.allgather_points), in place of this
+        process's slices. Returns the number of points written."""
+        payload = self.local_payload() if merged_payload is None else merged_payload
+        pts = payload[:, 0:3].astype(np.float32)
+        cols = np.clip(payload[:, 3:6], 0, 255).astype(np.uint8)
+        nrm = payload[:, 6:9].astype(np.float32)
+        if len(pts) == 0:
             save_pcd(path, np.zeros((0, 3), np.float32))
             return 0
-        pts = np.concatenate([p["points"] for p in parts])
-        cols = np.concatenate([p["colors"] for p in parts])
-        nrm = np.concatenate([p["normals"] for p in parts])
-        if deoverlap and len(pts):
+        if deoverlap:
             pts2, cols2, _ = voxel_downsample(pts, cols, None, self.cfg.voxel_size)
             pts, cols = pts2.astype(np.float32), cols2
             nrm = estimate_normals(pts, k=20)

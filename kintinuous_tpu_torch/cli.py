@@ -35,10 +35,13 @@ and --fast (the blocked fast path with the CUDA kernels and batched
 offline dispatch; without it the dense path runs, frame by frame, as
 the JAX CLI's default), --resolution, --trunc, --frame-limit, --prior,
 --profile-dir (a torch.profiler chrome trace), --dump-tsdf, --devices
-(1 only), --num-processes (1 only), --viz-port (the live web viewer on
-this port of 127.0.0.1, 0 for a free one; its URL is printed), and
---device (cpu to run the kernels' plain PyTorch versions; default the
-CUDA card).
+(the volume in z-slabs over that many cards, or CPU slabs with
+--device cpu; parallel/), --num-processes, --process-id and
+--coordinator (several processes in one gloo group at host:port,
+process 0 writing the map), --viz-port (the live web viewer on this
+port of 127.0.0.1, 0 for a free one; its URL is printed), and --device
+(cpu to run the kernels' plain PyTorch versions; default the CUDA
+card).
 
 Usage: python -m kintinuous_tpu_torch.cli -l seq.klg [--fast] [-m] -o map
        python -m kintinuous_tpu_torch.cli -live sensor.sock --fast --viz-port 0
@@ -122,20 +125,11 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-_UNPORTED = (  # (flag, argparse dest, is-set test)
-    ("--devices > 1", "devices", lambda v: v > 1),
-    ("--num-processes > 1", "num_processes", lambda v: v > 1),
-)
-
-
 def _parse(argv):
     p = _parser()
     a = p.parse_args(argv)
     if not a.log_file and not a.live_source:
         p.error("one of -l <log.klg> or -live <address> is required")
-    for flag, dest, is_set in _UNPORTED:
-        if is_set(getattr(a, dest)):
-            raise NotImplementedError(f"{flag}: not ported to kintinuous_tpu_torch yet")
     return a
 
 
@@ -165,8 +159,7 @@ def _config(a) -> KintinuousConfig:
 
 
 def build_config(argv) -> KintinuousConfig:
-    """The configuration the flags ask for; a flag whose feature is not
-    ported raises NotImplementedError naming it."""
+    """The configuration the flags ask for."""
     return _config(_parse(argv))
 
 
@@ -214,10 +207,16 @@ def _run(a, cfg: KintinuousConfig, engine) -> int:
         prof.export_chrome_trace(trace)
         print(f"profiler trace: {trace}")
     if a.dump_tsdf:
+        import torch
+
         vol = engine.tracker.state.vol
+
+        def whole(x):  # a sharded volume's slabs, concatenated
+            return torch.cat([t.cpu() for t in x]) if isinstance(x, tuple) else x.cpu()
+
         np.savez_compressed(
-            a.dump_tsdf, tsdf=vol.tsdf.cpu().numpy(),
-            cw=vol.cw.cpu().numpy().view(np.uint32), wrap=vol.wrap.cpu().numpy(),
+            a.dump_tsdf, tsdf=whole(vol.tsdf).numpy(),
+            cw=whole(vol.cw).numpy().view(np.uint32), wrap=vol.wrap.cpu().numpy(),
             origin=vol.origin.cpu().numpy(), blocked=np.asarray(cfg.fast_mode),
         )
         print(f"saved tsdf dump: {a.dump_tsdf}")
@@ -228,6 +227,10 @@ def _run(a, cfg: KintinuousConfig, engine) -> int:
         if name in stats:
             s = stats[name]
             print(f"{name}: mean {s['mean_ms']:.1f} ms over {s['count']}")
+    if cfg.num_processes > 1:
+        from kintinuous_tpu_torch.parallel.multihost import shutdown_distributed
+
+        shutdown_distributed()
     return 0
 
 

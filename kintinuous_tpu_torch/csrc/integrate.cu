@@ -127,7 +127,9 @@ __device__ __forceinline__ void fuse_voxel(float x, float y, float z,
   c = (to_u8(fminf(w_old + 1.0f, f.max_w)) << 24) | rgb;
 }
 
-// params: [Tinv rotation row-major (9) | Tinv translation (3) | wrap xyz (3)]
+// params: [Tinv rotation row-major (9) | Tinv translation (3) | wrap xyz (3) |
+//          z_block_offset]: the volume may be a z-slab of Bz*B*B rows whose
+// first block-plane is plane z_block_offset of the R^3 volume
 __global__ void __launch_bounds__(kFuseThreads)
     band_fusion_kernel(const float2* __restrict__ img,
                        const int* __restrict__ ids,
@@ -147,13 +149,15 @@ __global__ void __launch_bounds__(kFuseThreads)
   const int dx0 = (t & 1) * kVox, dy = (t >> 1) & 7, dz = t >> 4;
   const float tx = __ldg(params + 9), ty = __ldg(params + 10),
               tz = __ldg(params + 11);
+  const int zoff = (int)__ldg(params + 15);
 
   // lanes 0..23 of warp 0: world coordinate c = t % 8 of axis a = t / 8
   // of block bid, and its three products (k = a, a + 3, a + 6)
   auto produce = [&](int bid, int buf) {
     if (t < 24) {
       const int a = t >> 3, c = t & 7;
-      const int b = a == 0 ? bid % B : a == 1 ? (bid / B) % B : bid / (B * B);
+      const int b =
+          a == 0 ? bid % B : a == 1 ? (bid / B) % B : bid / (B * B) + zoff;
       const int wrap = (int)__ldg(params + 12 + a);
       const float w = ((float)pmod(b * 8 + c - wrap, R) + 0.5f) * vsz;
       prod[buf][a][c] = __ldg(params + a) * w;

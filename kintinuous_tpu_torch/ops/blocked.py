@@ -69,7 +69,13 @@ def blocked_to_dense(arr: torch.Tensor) -> torch.Tensor:
 
 def as_dense(vol):
     """A BlockedVolume unblocked into the dense VolumeState (a fresh
-    copy); a dense VolumeState as it is."""
+    copy); a dense VolumeState as it is. A sharded volume, whose tsdf and
+    cw are tuples of z-slabs (parallel/), is first gathered on its wrap's
+    device."""
+    if isinstance(vol.tsdf, (tuple, list)):
+        home = vol.wrap.device
+        vol = vol._replace(tsdf=torch.cat([t.to(home) for t in vol.tsdf]),
+                           cw=torch.cat([c.to(home) for c in vol.cw]))
     if not isinstance(vol, BlockedVolume):
         return vol
     return VolumeState(tsdf=blocked_to_dense(vol.tsdf), cw=blocked_to_dense(vol.cw),

@@ -11,6 +11,14 @@ a shift frame.
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs
 its plain PyTorch version only for CPU tensors; it counts its launches
 in `<wrapper>.launches`. The kernels update the volume in place.
+
+The volume may be one z-slab of a larger R^3 volume, as each device of
+the sharded fast step holds (parallel/fast_sharded.py): its Bz*B*B rows
+are block-planes [z_block_offset, z_block_offset + Bz). The caller then
+passes `resolution=R` and the slab's `z_block_offset`; the plan
+classifies only the slab's blocks, the caps clamp to its rows, and K1
+adds the offset to each block's z. K2 addresses rows only. The mirror
+is a whole volume's, so a slab takes none.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from kintinuous_tpu_torch.ops.blocked import BLOCK, CELLS
 from kintinuous_tpu_torch.ops.tsdf_fast import (
     FREE_CAP,
     build_depth_tables,
+    volume_resolution,
     carve_rows,
     classify_blocks,
     compact_block_lists,
@@ -38,18 +47,25 @@ _SIGNATURES = {
 }
 
 
-def fusion_params(Tinv: torch.Tensor, wrap: torch.Tensor) -> torch.Tensor:
-    """(15,) f32 [Tinv rotation (9) | Tinv translation (3) | wrap (3)]."""
+def fusion_params(Tinv: torch.Tensor, wrap: torch.Tensor,
+                  z_block_offset: int = 0) -> torch.Tensor:
+    """(16,) f32 [Tinv rotation (9) | Tinv translation (3) | wrap (3) |
+    z_block_offset], the Pallas kernel's layout."""
     return torch.cat([
         Tinv[:3, :3].reshape(-1), Tinv[:3, 3], wrap.to(torch.float32),
+        torch.full((1,), float(z_block_offset), dtype=torch.float32,
+                   device=Tinv.device),
     ]).contiguous()
 
 
 def band_fusion_plain(tsdf, cw, img_rows, band_ids, n_band, params,
                       cam: CameraIntrinsics, voxel_size: float,
-                      trunc_dist: float, max_weight: float) -> None:
-    """Plain version of the band-fusion kernel, in place."""
-    R = round(tsdf.shape[0] ** (1 / 3)) * BLOCK
+                      trunc_dist: float, max_weight: float,
+                      resolution: Optional[int] = None) -> None:
+    """Plain version of the band-fusion kernel, in place. The slab's
+    z_block_offset is params[15]."""
+    zoff = params[15].to(torch.int32)
+    R = volume_resolution(tsdf.shape[0], resolution)
     cap = band_ids.shape[0]
     ids = band_ids.long()
     Tinv34 = torch.cat([params[:9].reshape(3, 3), params[9:12, None]], dim=1)
@@ -57,7 +73,7 @@ def band_fusion_plain(tsdf, cw, img_rows, band_ids, n_band, params,
     t_upd, c_upd = fuse_band_rows(
         tsdf[ids].reshape(cap, CELLS), cw[ids].reshape(cap, CELLS), band_ids,
         valid, img_rows, Tinv34, params[12:15].to(torch.int32), cam, R,
-        voxel_size, trunc_dist, max_weight,
+        voxel_size, trunc_dist, max_weight, z_block_offset=zoff,
     )
     write_rows(tsdf, band_ids, n_band, t_upd)
     write_rows(cw, band_ids, n_band, c_upd)
@@ -65,23 +81,25 @@ def band_fusion_plain(tsdf, cw, img_rows, band_ids, n_band, params,
 
 def band_fusion(tsdf, cw, img_rows, band_ids, n_band, params,
                 cam: CameraIntrinsics, voxel_size: float, trunc_dist: float,
-                max_weight: float) -> None:
-    """Fuse the first n_band blocks of band_ids into the volume, in place
-    (replaces pallas_integrate._integrate_kernel)."""
+                max_weight: float, resolution: Optional[int] = None) -> None:
+    """Fuse the first n_band blocks of band_ids into the volume (or a
+    z-slab of an R^3 volume, `resolution` R, offset params[15]), in
+    place (replaces pallas_integrate._integrate_kernel)."""
     if tsdf.device.type == "cpu":
         band_fusion_plain(tsdf, cw, img_rows, band_ids, n_band, params, cam,
-                          voxel_size, trunc_dist, max_weight)
+                          voxel_size, trunc_dist, max_weight, resolution)
         return
     K.require_cuda("band_fusion", tsdf, cw, img_rows, band_ids, n_band, params)
     K.require_cuda("band_fusion", tsdf, cw, align=16)  # float4 / uint4 words
-    R = round(tsdf.shape[0] ** (1 / 3)) * BLOCK
+    R = volume_resolution(tsdf.shape[0], resolution)
     lib = K.library("integrate", _SIGNATURES)
-    err = lib.kt_band_fusion(
-        img_rows.data_ptr(), band_ids.data_ptr(), n_band.data_ptr(),
-        params.data_ptr(), tsdf.data_ptr(), cw.data_ptr(), band_ids.shape[0],
-        R // BLOCK, R, cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
-        voxel_size, trunc_dist, max_weight, K.stream_of(tsdf),
-    )
+    with K.on_device(tsdf):
+        err = lib.kt_band_fusion(
+            img_rows.data_ptr(), band_ids.data_ptr(), n_band.data_ptr(),
+            params.data_ptr(), tsdf.data_ptr(), cw.data_ptr(), band_ids.shape[0],
+            R // BLOCK, R, cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
+            voxel_size, trunc_dist, max_weight, K.stream_of(tsdf),
+        )
     K.check(err, "kt_band_fusion")
     band_fusion.launches += 1
 
@@ -108,10 +126,11 @@ def free_carve(tsdf, cw, free_ids, n_free, max_weight: float) -> None:
     K.require_cuda("free_carve", tsdf, cw, free_ids, n_free)
     K.require_cuda("free_carve", tsdf, cw, align=16)  # float4 / uint4 words
     lib = K.library("integrate", _SIGNATURES)
-    err = lib.kt_free_carve(
-        free_ids.data_ptr(), n_free.data_ptr(), tsdf.data_ptr(), cw.data_ptr(),
-        free_ids.shape[0], max_weight, K.stream_of(tsdf),
-    )
+    with K.on_device(tsdf):
+        err = lib.kt_free_carve(
+            free_ids.data_ptr(), n_free.data_ptr(), tsdf.data_ptr(), cw.data_ptr(),
+            free_ids.shape[0], max_weight, K.stream_of(tsdf),
+        )
     K.check(err, "kt_free_carve")
     free_carve.launches += 1
 
@@ -145,14 +164,20 @@ def dirty_pairs(lists, B: int, dirty_all: bool):
 
 def integrate_plan(vol, cam: CameraIntrinsics, depth_m, rgb, color_w, T,
                    voxel_size: float, trunc_dist: float, band_cap: int = 8192,
-                   free_cap: int = FREE_CAP):
+                   free_cap: int = FREE_CAP, resolution: Optional[int] = None,
+                   z_block_offset: int = 0):
     """The kernels' inputs for one frame: the depth tables, the compacted
-    band and free lists, and the fusion parameters."""
+    band and free lists (of the slab's rows when vol is a z-slab of an
+    R^3 volume, `resolution` R), and the fusion parameters."""
+    R = volume_resolution(vol.tsdf.shape[0], resolution, z_block_offset)
+    B = R // BLOCK
     tables = build_depth_tables(cam, depth_m, rgb, color_w)
     Tinv = torch.linalg.inv_ex(T)[0]
-    cls = classify_blocks(vol, cam, tables, Tinv, voxel_size, trunc_dist)
+    cls = classify_blocks(vol, cam, tables, Tinv, voxel_size, trunc_dist,
+                          resolution=R, z_blocks=vol.tsdf.shape[0] // (B * B),
+                          z_block_offset=z_block_offset)
     lists = compact_block_lists(cls, band_cap, free_cap)
-    return tables, lists, fusion_params(Tinv, vol.wrap)
+    return tables, lists, fusion_params(Tinv, vol.wrap, z_block_offset)
 
 
 def integrate_cuda(vol, cam: CameraIntrinsics, depth_m, rgb, color_w, T,
@@ -160,18 +185,22 @@ def integrate_cuda(vol, cam: CameraIntrinsics, depth_m, rgb, color_w, T,
                    max_weight: float = 128.0, band_cap: int = 8192,
                    free_cap: int = FREE_CAP,
                    mirror: Optional[torch.Tensor] = None,
-                   dirty_all: bool = False):
-    """Fuse one frame into the blocked volume IN PLACE; when a mirror is
-    given, refresh its dirty row-pairs in place too. Returns the volume.
-    Nothing here reads a device value on the host."""
+                   dirty_all: bool = False, resolution: Optional[int] = None,
+                   z_block_offset: int = 0):
+    """Fuse one frame into the blocked volume (or its z-slab, see the
+    module's docstring) IN PLACE; when a mirror is given, refresh its
+    dirty row-pairs in place too. Returns the volume. Nothing here reads
+    a device value on the host."""
     from kintinuous_tpu_torch.ops.cuda_raycast import mirror_refresh
 
-    R = round(vol.tsdf.shape[0] ** (1 / 3)) * BLOCK
+    R = volume_resolution(vol.tsdf.shape[0], resolution, z_block_offset)
+    if mirror is not None and vol.tsdf.shape[0] != (R // BLOCK) ** 3:
+        raise ValueError("the mirror refresh takes the whole volume, not a slab")
     tables, lists, params = integrate_plan(
         vol, cam, depth_m, rgb, color_w, T, voxel_size, trunc_dist,
-        band_cap, free_cap)
+        band_cap, free_cap, R, z_block_offset)
     band_fusion(vol.tsdf, vol.cw, tables.img_rows, lists.band_ids,
-                lists.n_band, params, cam, voxel_size, trunc_dist, max_weight)
+                lists.n_band, params, cam, voxel_size, trunc_dist, max_weight, R)
     free_carve(vol.tsdf, vol.cw, lists.free_ids, lists.n_free, max_weight)
     if mirror is not None:
         pairs, count = dirty_pairs(lists, R // BLOCK, dirty_all)

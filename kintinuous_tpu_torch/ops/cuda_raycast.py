@@ -79,10 +79,11 @@ def mirror_refresh(tsdf, mirror, pairs, count) -> None:
     K.require_cuda("mirror_refresh", tsdf, mirror, align=16)  # 16-byte words
     R = mirror.shape[0]
     lib = K.library("logical", _SIGNATURES_LOGICAL)
-    err = lib.kt_mirror_refresh(
-        tsdf.data_ptr(), pairs.data_ptr(), count.data_ptr(), mirror.data_ptr(),
-        pairs.shape[0], R // BLOCK, R, K.stream_of(tsdf),
-    )
+    with K.on_device(tsdf):
+        err = lib.kt_mirror_refresh(
+            tsdf.data_ptr(), pairs.data_ptr(), count.data_ptr(), mirror.data_ptr(),
+            pairs.shape[0], R // BLOCK, R, K.stream_of(tsdf),
+        )
     K.check(err, "kt_mirror_refresh")
     mirror_refresh.launches += 1
 
@@ -117,7 +118,8 @@ def build_mirror(tsdf, R: int, out=None) -> torch.Tensor:
         raise ValueError(f"build_mirror: want a ({B ** 3},4,128) f32 tsdf and an "
                          f"({R},{R},{R}) bf16 mirror")
     lib = K.library("logical", _SIGNATURES_LOGICAL)
-    err = lib.kt_deblock(tsdf.data_ptr(), out.data_ptr(), B, R, K.stream_of(tsdf))
+    with K.on_device(tsdf):
+        err = lib.kt_deblock(tsdf.data_ptr(), out.data_ptr(), B, R, K.stream_of(tsdf))
     K.check(err, "kt_deblock")
     build_mirror.launches += 1
     return out
@@ -260,12 +262,14 @@ def tile_raycast(mirror, t_warm, params, cam: CameraIntrinsics,
     h, w = t_warm.shape
     out = torch.empty((5, h, w), dtype=torch.float32, device=t_warm.device)
     base, plane = out.data_ptr(), h * w * 4
-    err = K.library("raycast", _SIGNATURES_RAYCAST).kt_tile_raycast(
-        mirror.data_ptr(), t_warm.data_ptr(), params.data_ptr(), base,
-        base + plane, base + 2 * plane, base + 3 * plane, base + 4 * plane, h, w,
-        mirror.shape[0], *_raycast_constants(cam, voxel_size, trunc_dist),
-        window, newton, K.stream_of(t_warm),
-    )
+    lib = K.library("raycast", _SIGNATURES_RAYCAST)
+    with K.on_device(t_warm):
+        err = lib.kt_tile_raycast(
+            mirror.data_ptr(), t_warm.data_ptr(), params.data_ptr(), base,
+            base + plane, base + 2 * plane, base + 3 * plane, base + 4 * plane, h, w,
+            mirror.shape[0], *_raycast_constants(cam, voxel_size, trunc_dist),
+            window, newton, K.stream_of(t_warm),
+        )
     K.check(err, "kt_tile_raycast")
     tile_raycast.launches += 1
     return out.unbind(0)

@@ -173,6 +173,14 @@ def require_cuda(fn: str, *tensors: torch.Tensor, align: int = 1) -> None:
                              f"{align}-byte aligned")
 
 
+def on_device(t: torch.Tensor):
+    """Make t's card the calling thread's current device for a launch.
+    The C launchers launch on the current device and set none, and a
+    slab mesh issues every card's work from one thread, so a launch on
+    another card's tensors without this runs on the wrong card."""
+    return torch.cuda.device(t.device)
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float

@@ -44,14 +44,16 @@ class FastRaycastResult(NamedTuple):
     fallback_frac: Union[torch.Tensor, float] = 0.0
 
 
-def build_pair_texture(tsdf_b: torch.Tensor) -> torch.Tensor:
+def build_pair_texture(tsdf_b: torch.Tensor, xy_blocks: Optional[int] = None) -> torch.Tensor:
     """(B^3,4,128) f32 -> (B^3*512, 2) bf16: row v holds bf16(t[x]) and
     bf16(t[x+1 mod R]) for the voxel at flat offset v and its +x
     neighbour (the next block's dx=0 past dx=7, block B-1 wrapping to
-    block 0)."""
-    B = round(tsdf_b.shape[0] ** (1 / 3))
-    t = tsdf_b.reshape(B, B, B, BLOCK, BLOCK, BLOCK)  # [bz,by,bx,dz,dy,dx]
-    pairs = torch.empty((B, B, B, BLOCK, BLOCK, BLOCK, 2), dtype=torch.bfloat16,
+    block 0). xy_blocks: the x/y block count B when tsdf_b holds only
+    Bz*B*B rows, a block-z slab of a larger volume."""
+    B = xy_blocks if xy_blocks is not None else round(tsdf_b.shape[0] ** (1 / 3))
+    Bz = tsdf_b.shape[0] // (B * B)
+    t = tsdf_b.reshape(Bz, B, B, BLOCK, BLOCK, BLOCK)  # [bz,by,bx,dz,dy,dx]
+    pairs = torch.empty((Bz, B, B, BLOCK, BLOCK, BLOCK, 2), dtype=torch.bfloat16,
                         device=tsdf_b.device)
     pairs[..., 0] = t
     pairs[..., :-1, 1] = t[..., 1:]

@@ -11,7 +11,7 @@ updates compose as T <- exp(xi) @ T.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -187,31 +187,61 @@ def add_motion_prior(A, b, T, T_prior, weight):
     return A + torch.diag(w6), b + w6 * xi_p
 
 
+def one_part(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The reduction over a single device: its one tensor (the default
+    `reduce` of the solvers, whose single case is a list of one)."""
+    (x,) = parts
+    return x
+
+
+def sum_systems(systems: Sequence[GNSystem], reduce) -> GNSystem:
+    """One GNSystem from per-slab ones: `reduce` (a list of per-slab
+    tensors -> their sum, parallel/mesh.SlabMesh.psum_home) field by
+    field."""
+    return GNSystem(*(reduce(list(f)) for f in zip(*systems)))
+
+
 def icp_solve_level(cam: CameraIntrinsics, T_init, vmap_curr, nmap_curr,
                     packed_prev, target_hw, iterations: int,
                     dist_thresh: float = 0.10,
                     angle_thresh_sin: float = math.sin(math.radians(20.0)),
                     min_inliers: float = 30.0, reassoc_every: int = 1,
-                    T_prior=None, prior_weight=0.0):
+                    T_prior=None, prior_weight=0.0, reduce=None):
     """GN steps at one level. reassoc_every <= 1: `iterations` steps,
     each re-associating (the reference's schedule). Otherwise
     ceil(iterations / reassoc_every) groups of `reassoc_every` steps
     share one association, as in the JAX package. A step is accepted
     only if the solve is finite with at least `min_inliers` inliers,
-    decided on the device."""
+    decided on the device.
+
+    reduce (the JAX package's axis_name): vmap_curr, nmap_curr and
+    packed_prev are then sequences, one entry per slab: that slab's
+    pixel-row block of the current maps and its copy of the whole
+    prediction, on the slab's device. Each slab builds the system of its
+    rows, `reduce` sums the slabs' fields onto T_init's device, and the
+    one solve runs there."""
     zero = torch.zeros((), dtype=torch.float32, device=T_init.device)
     if iterations == 0:
         return T_init, zero, zero
+    if reduce is None:
+        vmap_curr, nmap_curr, packed_prev = [vmap_curr], [nmap_curr], [packed_prev]
+        reduce = one_part
     per_group = max(reassoc_every, 1)
     n_groups = -(-iterations // per_group)
     T, cnt, res = T_init, zero, zero
     for _ in range(n_groups):
-        d, n, in_img = icp_associate(cam, T, vmap_curr, packed_prev, target_hw)
-        for _ in range(per_group):
-            sys_ = icp_build_from_assoc(
-                T, vmap_curr, nmap_curr, d, n, in_img,
-                dist_thresh, angle_thresh_sin,
-            )
+        Ts = [T.to(v.device, non_blocking=True) for v in vmap_curr]
+        assoc = [icp_associate(cam, Tk, v, p, target_hw)
+                 for Tk, v, p in zip(Ts, vmap_curr, packed_prev)]
+        for it in range(per_group):
+            if it:
+                Ts = [T.to(v.device, non_blocking=True) for v in vmap_curr]
+            parts = [
+                icp_build_from_assoc(Tk, v, nm, d, n, in_img,
+                                     dist_thresh, angle_thresh_sin)
+                for Tk, v, nm, (d, n, in_img) in zip(Ts, vmap_curr, nmap_curr, assoc)
+            ]
+            sys_ = sum_systems(parts, reduce)
             A, b = sys_.A, sys_.b
             if T_prior is not None:
                 A, b = add_motion_prior(A, b, T, T_prior, prior_weight)

@@ -1,5 +1,4 @@
-"""Photometric (RGB-D) odometry (port of kintinuous_tpu/ops/rgbd.py,
-single device).
+"""Photometric (RGB-D) odometry (port of kintinuous_tpu/ops/rgbd.py).
 
 rgb_system builds one sigma-weighted photometric normal-equation system
 at a pyramid level: the residual pass computes sigma on the device, and
@@ -31,8 +30,10 @@ from kintinuous_tpu_torch.ops.reduce import (
     icp_associate,
     icp_build_from_assoc,
     icp_step,
+    one_part,
     pack_maps,
     solve_gn,
+    sum_systems,
 )
 
 # squared minimum gradient magnitudes per level, finest first
@@ -77,13 +78,11 @@ def _bilinear_rows(tex, H: int, W: int, uv):
     )
 
 
-def rgb_system(cam: CameraIntrinsics, T_curr_to_prev, vmap_curr, int_curr,
-               tex_prev, prev_hw: Tuple[int, int], min_grad2: float,
-               max_depth_delta: float = MAX_DEPTH_DELTA,
-               bilinear: bool = True) -> GNSystem:
-    """One weighted photometric normal-equation build at one level.
-    vmap_curr (3,h,w) current camera-frame vertices, int_curr (h,w) the
-    current intensity, tex_prev the previous frame's packed texture."""
+def _rgb_residuals(cam: CameraIntrinsics, T_curr_to_prev, vmap_curr, int_curr,
+                   tex_prev, prev_hw, min_grad2: float, max_depth_delta: float,
+                   bilinear: bool):
+    """The residual pass of rgb_system: warped points p, previous-frame
+    gradients, the gate mask and the intensity differences."""
     R = T_curr_to_prev[:3, :3]
     t = T_curr_to_prev[:3, 3]
     p = torch.einsum("ij,jhw->ihw", R, vmap_curr) + t[:, None, None]
@@ -104,11 +103,13 @@ def rgb_system(cam: CameraIntrinsics, T_curr_to_prev, vmap_curr, int_curr,
         & (gx * gx + gy * gy > min_grad2)  # texture gate
     )
     diff = i_prev - int_curr
-    m = mask.to(torch.float32)
-    ssum = torch.sum(torch.where(mask, diff * diff, 0.0))
-    sigma = torch.sqrt(ssum / torch.clamp(m.sum(), min=1.0))
-    w = torch.where(mask, 1.0 / (sigma + torch.abs(diff) + 1e-3), 0.0)
+    return p, zs, gx, gy, mask, diff
 
+
+def _rgb_build(cam: CameraIntrinsics, p, zs, gx, gy, mask, diff, sigma, count) -> GNSystem:
+    """The weighted system of one residual pass at the given sigma."""
+    px, py, pz = p[0], p[1], p[2]
+    w = torch.where(mask, 1.0 / (sigma + torch.abs(diff) + 1e-3), 0.0)
     # chain rule g = dI/dp
     g0 = gx * cam.fx / zs
     g1 = gy * cam.fy / zs
@@ -118,7 +119,35 @@ def rgb_system(cam: CameraIntrinsics, T_curr_to_prev, vmap_curr, int_curr,
     a = torch.where(mask[None], a, 0.0).reshape(6, -1)
     wr = torch.where(mask, -w * diff, 0.0).reshape(-1)
     aw = a * torch.sqrt(w).reshape(-1)[None]
-    return GNSystem(A=aw @ aw.T, b=a @ wr, count=m.sum(), residual=sigma)
+    return GNSystem(A=aw @ aw.T, b=a @ wr, count=count, residual=sigma)
+
+
+def rgb_system(cam: CameraIntrinsics, T_curr_to_prev, vmap_curr, int_curr,
+               tex_prev, prev_hw: Tuple[int, int], min_grad2: float,
+               max_depth_delta: float = MAX_DEPTH_DELTA,
+               bilinear: bool = True, reduce=None) -> GNSystem:
+    """One weighted photometric normal-equation build at one level.
+    vmap_curr (3,h,w) current camera-frame vertices, int_curr (h,w) the
+    current intensity, tex_prev the previous frame's packed texture.
+
+    reduce (the JAX package's axis_name): vmap_curr, int_curr and
+    tex_prev are then sequences, one entry per slab (its pixel-row block
+    and its copy of the whole texture, on its device). `reduce` sums the
+    slabs' sigma statistics, so that the robust weights are the whole
+    image's, and then their systems; the residual is the whole image's
+    sigma, on the reduction's device."""
+    if reduce is None:
+        vmap_curr, int_curr, tex_prev = [vmap_curr], [int_curr], [tex_prev]
+        reduce = one_part
+    parts = [_rgb_residuals(cam, T_curr_to_prev.to(v.device, non_blocking=True), v, i,
+                            tex, prev_hw, min_grad2, max_depth_delta, bilinear)
+             for v, i, tex in zip(vmap_curr, int_curr, tex_prev)]
+    counts = [r[4].to(torch.float32).sum() for r in parts]
+    ssum = reduce([torch.sum(torch.where(r[4], r[5] * r[5], 0.0)) for r in parts])
+    sigma = torch.sqrt(ssum / torch.clamp(reduce(counts), min=1.0))
+    systems = [_rgb_build(cam, *r, sigma.to(r[0].device, non_blocking=True), c)
+               for r, c in zip(parts, counts)]
+    return sum_systems(systems, reduce)._replace(residual=sigma)
 
 
 class RGBDFramePyramid(NamedTuple):
@@ -163,6 +192,7 @@ def rgbd_icp_odometry(
     T_init: Optional[torch.Tensor] = None,
     T_prior: Optional[torch.Tensor] = None,
     prior_weight=0.0,
+    reduce=None,
 ):
     """Fused dense RGB-D (+ optional ICP) coarse-to-fine odometry.
     Returns (T_curr_to_prev, rgb_inliers, sigma), all on the device.
@@ -171,28 +201,49 @@ def rgbd_icp_odometry(
     texture nearest-neighbour on every other pixel row; the last samples
     bilinearly on every row. reassoc_every > 1 freezes the ICP
     association for groups of that many steps (whole groups, so a phase
-    may run a few more steps than asked, as in the JAX package)."""
+    may run a few more steps than asked, as in the JAX package).
+
+    reduce (as in ops/reduce.icp_solve_level): curr_pyr's maps and
+    curr_rgbd's intensity are then, at each level, sequences of per-slab
+    pixel-row blocks (an even number of rows each, so that the coarse
+    phase's every other row is the whole image's); the previous texture
+    and the prediction are copied to each slab's device. `reduce` sums
+    the sigma statistics and both systems over the slabs, and the solve
+    runs on T's device."""
     levels = len(curr_pyr)
-    dev = curr_pyr[0][0].device
+    if reduce is None:
+        curr_pyr = [([v], [n]) for v, n in curr_pyr]
+        curr_int = [[i] for i in curr_rgbd.intensity]
+        reduce = one_part
+    else:
+        curr_int = curr_rgbd.intensity
+    dev = curr_pyr[0][0][0].device
     sin_t = math.sin(math.radians(angle_thresh_deg))
     T0 = T_init if T_init is not None else torch.eye(4, dtype=torch.float32, device=dev)
     T = T0
     count = torch.zeros((), dtype=torch.float32, device=dev)
     sigma = torch.zeros((), dtype=torch.float32, device=dev)
     w2 = icp_weight * icp_weight
+
+    def per_slab(x, like):
+        """x copied to the device of each slab block in `like`."""
+        return [x.to(v.device, non_blocking=True) for v in like]
+
     for level in range(levels - 1, -1, -1):
         iters = int(iterations[level]) if level < len(iterations) else 0
         if iters == 0:
             continue
         cam_l = cam.at_level(level)
-        vc, nc = curr_pyr[level]
+        vcs, ncs = (list(x) for x in curr_pyr[level])
+        ints = list(curr_int[level])
         mg2 = MIN_GRAD2[min(level, len(MIN_GRAD2) - 1)]
         tex_prev = pack_prev_texture(prev_rgbd.intensity[level], prev_rgbd.gradx[level],
                                      prev_rgbd.grady[level], prev_rgbd.depth[level])
+        texs = per_slab(tex_prev, vcs)
         prev_hw = tuple(prev_rgbd.intensity[level].shape)
         if pred_pyr is not None:
             vp, np_ = pred_pyr[level]
-            packed_icp = pack_maps(vp, np_)
+            packeds = per_slab(pack_maps(vp, np_), vcs)
             icp_hw = tuple(vp.shape[1:])
 
         def fused_solve(T, rgb, icp):
@@ -215,26 +266,33 @@ def rgbd_icp_odometry(
         for n_iters, bilinear in phases:
             if n_iters == 0:
                 continue
-            vc_l = vc if bilinear else vc[:, ::2, :]
-            int_l = curr_rgbd.intensity[level]
-            int_l = int_l if bilinear else int_l[::2, :]
+            vc_l = vcs if bilinear else [v[:, ::2, :] for v in vcs]
+            int_l = ints if bilinear else [i[::2, :] for i in ints]
 
             def rgb_at(T):
-                return rgb_system(cam_l, T, vc_l, int_l, tex_prev, prev_hw, mg2,
-                                  bilinear=bilinear)
+                return rgb_system(cam_l, T, vc_l, int_l, texs, prev_hw, mg2,
+                                  bilinear=bilinear, reduce=reduce)
+
+            def icp_at(T):
+                if pred_pyr is None:
+                    return None
+                return sum_systems([icp_step(cam_l, Tk, v, n_, vp, np_, dist_thresh,
+                                             sin_t, packed_prev=pk)
+                                    for Tk, v, n_, pk in zip(per_slab(T, vcs), vcs, ncs,
+                                                             packeds)], reduce)
 
             if pred_pyr is None or reassoc_every <= 1:
                 for _ in range(n_iters):
-                    icp = (icp_step(cam_l, T, vc, nc, vp, np_, dist_thresh, sin_t,
-                                    packed_prev=packed_icp)
-                           if pred_pyr is not None else None)
-                    T, count, sigma = fused_solve(T, rgb_at(T), icp)
+                    T, count, sigma = fused_solve(T, rgb_at(T), icp_at(T))
                 continue
             for _ in range(-(-n_iters // reassoc_every)):
-                d, n_t, in_img = icp_associate(cam_l, T, vc, packed_icp, icp_hw)
+                assoc = [icp_associate(cam_l, Tk, v, pk, icp_hw)
+                         for Tk, v, pk in zip(per_slab(T, vcs), vcs, packeds)]
                 for _ in range(reassoc_every):
-                    icp = icp_build_from_assoc(T, vc, nc, d, n_t, in_img,
-                                               dist_thresh, sin_t)
+                    icp = sum_systems([icp_build_from_assoc(Tk, v, n_, d, n_t, in_img,
+                                                            dist_thresh, sin_t)
+                                       for Tk, v, n_, (d, n_t, in_img)
+                                       in zip(per_slab(T, vcs), vcs, ncs, assoc)], reduce)
                     T, count, sigma = fused_solve(T, rgb_at(T), icp)
     # tracking-failure guard: a jump beyond jump_reject_m falls back to the
     # start (identity, or the constant-velocity warm start)

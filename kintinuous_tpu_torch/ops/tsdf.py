@@ -99,7 +99,7 @@ def make_volume(resolution: int, device=None) -> VolumeState:
 def integrate(vol: VolumeState, cam: CameraIntrinsics, depth_m: torch.Tensor,
               rgb: torch.Tensor, color_w: torch.Tensor, T_cam_to_local: torch.Tensor,
               voxel_size: float, trunc_dist: float, max_weight: float = 128.0,
-              z_chunk: int = 64) -> VolumeState:
+              z_chunk: int = 64, z_phys_offset: int = 0) -> VolumeState:
     """Fuse one frame into the dense volume, in place (JAX integrate,
     ops/tsdf.py:92-214): each voxel is projected to its nearest pixel
     (round half to even), the running-average tsdf is fused where the
@@ -107,7 +107,9 @@ def integrate(vol: VolumeState, cam: CameraIntrinsics, depth_m: torch.Tensor,
     (weight capped at max_weight), and colour mixes by the pixel's
     weight q/127.5 where it has one or the voxel is still black.
     depth_m (H,W) metres (0 invalid), rgb (H,W,3) f32, color_w (H,W) in
-    [0,2] (a bool mask means where(mask, 0, 2)). Returns vol."""
+    [0,2] (a bool mask means where(mask, 0, 2)). vol.tsdf may be a
+    z-slab (Rz,R,R) of the R^3 volume whose first physical plane is
+    z_phys_offset (the sharded dense step's). Returns vol."""
     from kintinuous_tpu_torch.ops.maps import quantize_color_w
     from kintinuous_tpu_torch.ops.reduce import round_to_int
 
@@ -141,7 +143,7 @@ def integrate(vol: VolumeState, cam: CameraIntrinsics, depth_m: torch.Tensor,
         return vx[None, None, :] + vy[None, :, None] + vz[:, None, None] + t
 
     for z0 in range(0, Rz, z_chunk):
-        pz = z0 + torch.arange(z_chunk, dtype=torch.int32, device=dev)
+        pz = z_phys_offset + z0 + torch.arange(z_chunk, dtype=torch.int32, device=dev)
         wz = (((pz - wrap[2]) % R).to(torch.float32) + 0.5) * voxel_size
         x = bc(cx_x, cx_y, Rcl[0, 2] * wz, tcl[0])
         y = bc(cy_x, cy_y, Rcl[1, 2] * wz, tcl[1])

@@ -17,13 +17,13 @@ they are the plain versions of the band-fusion and free-carve kernels
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from kintinuous_tpu_torch.config import CameraIntrinsics
-from kintinuous_tpu_torch.ops.blocked import BLOCK, CELLS
+from kintinuous_tpu_torch.ops.blocked import BLOCK, CELLS, resolution_of
 from kintinuous_tpu_torch.ops.maps import quantize_color_w
 from kintinuous_tpu_torch.ops.reduce import _INT_CLAMP, round_to_int
 from kintinuous_tpu_torch.ops.tsdf import scale_depth, sqrt_rn, to_u8
@@ -102,13 +102,33 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def volume_resolution(rows: int, resolution: Optional[int] = None,
+                      z_block_offset: int = 0) -> int:
+    """The resolution R of the R^3 volume whose block rows (or a z-slab
+    of them) a kernel is given: `resolution` when the caller names it,
+    which a slab must; a whole cube's own otherwise."""
+    if resolution is not None:
+        return int(resolution)
+    R = resolution_of(rows)
+    if z_block_offset or (R // BLOCK) ** 3 != rows:
+        raise ValueError("a z-slab of the volume needs its full resolution")
+    return R
+
+
 def classify_blocks(vol, cam: CameraIntrinsics, tables: DepthTables,
                     Tinv: torch.Tensor, voxel_size: float, trunc_dist: float,
-                    cell: int = DEFAULT_CELL, dilate: int = 2) -> torch.Tensor:
-    """-> (B,B,B) [bz,by,bx] i32 class in OUT/FREE/BAND. Tinv is the
-    local -> camera transform (inverse of the camera pose)."""
-    R = round(vol.tsdf.shape[0] ** (1 / 3)) * BLOCK
+                    cell: int = DEFAULT_CELL, dilate: int = 2,
+                    resolution: Optional[int] = None,
+                    z_blocks: Optional[int] = None,
+                    z_block_offset: int = 0) -> torch.Tensor:
+    """-> (Bz,B,B) [bz,by,bx] i32 class in OUT/FREE/BAND. Tinv is the
+    local -> camera transform (inverse of the camera pose).
+    z_blocks / z_block_offset restrict the classification to the
+    physical block-planes [offset, offset + z_blocks) of an R^3 volume
+    (`resolution`): the slab one device of the sharded step holds."""
+    R = volume_resolution(vol.tsdf.shape[0], resolution, z_block_offset)
     B = R // BLOCK
+    Bz = B if z_blocks is None else z_blocks
     dev = vol.tsdf.device
     H, W = cam.height, cam.width
     cu, cv = tables.n_cells_u, H // cell
@@ -116,14 +136,15 @@ def classify_blocks(vol, cam: CameraIntrinsics, tables: DepthTables,
     Rcl, tcl = Tinv[:3, :3], Tinv[:3, 3]
 
     pb = torch.arange(B, dtype=torch.int32, device=dev)
+    pbz = torch.arange(Bz, dtype=torch.int32, device=dev) + z_block_offset
 
-    def centre(axis):
-        g = ((pb * BLOCK - vol.wrap[axis]) % R).to(torch.float32) + BLOCK / 2.0
+    def centre(axis, p):
+        g = ((p * BLOCK - vol.wrap[axis]) % R).to(torch.float32) + BLOCK / 2.0
         return g * voxel_size
 
-    wx, wy, wz = centre(0), centre(1), centre(2)
+    wx, wy, wz = centre(0, pb), centre(1, pb), centre(2, pbz)
 
-    def bc(vx, vy, vz, t):  # -> (Bz,By,Bx)
+    def bc(vx, vy, vz, t):  # -> (Bz,B,B)
         return vx[None, None, :] + vy[None, :, None] + vz[:, None, None] + t
 
     x = bc(Rcl[0, 0] * wx, Rcl[0, 1] * wy, Rcl[0, 2] * wz, tcl[0])
@@ -206,14 +227,16 @@ def compact_block_lists(cls: torch.Tensor, band_cap: int,
 
 def fuse_band_rows(t8, c8, band_ids, valid_block, img_rows, Tinv, wrap,
                    cam: CameraIntrinsics, R: int, voxel_size: float,
-                   trunc_dist: float, max_weight: float):
+                   trunc_dist: float, max_weight: float, z_block_offset=0):
     """The exact per-voxel band update on gathered rows (K,512):
     project each voxel, take the nearest pixel (round half to even),
     fuse the running-average tsdf (weight capped at max_weight) and mix
-    colour by q_w/127.5. Returns (t_upd, c_upd)."""
+    colour by q_w/127.5. band_ids are rows of a slab whose first
+    block-plane is z_block_offset of the R^3 volume (0: the whole cube).
+    Returns (t_upd, c_upd)."""
     B = R // BLOCK
     H, W = cam.height, cam.width
-    bz = band_ids // (B * B)
+    bz = band_ids // (B * B) + z_block_offset
     by = (band_ids // B) % B
     bx = band_ids % B
     off = torch.arange(CELLS, dtype=torch.int32, device=t8.device)[None, :]

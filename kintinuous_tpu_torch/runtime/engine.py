@@ -29,8 +29,16 @@ Both loops keep the last frame they fed (`last_frame`, the viewer's
 input panes) and hold `frame_lock` for each frame or batch, so that the
 viewer's save and reset run between two frames.
 
-Not ported yet, and raising NotImplementedError rather than running
-something else: several devices or processes.
+Several devices (cfg.devices > 1): the tracker is a
+parallel/tracker.ShardedTracker over cfg.devices z-slabs (the first
+cfg.devices cards, or slabs on the CPU with device="cpu"), run frame by
+frame, as the JAX engine batches only on one device. Several processes
+(cfg.num_processes > 1): each joins the gloo group at cfg.coordinator
+before the build and tracks the whole log; without -od the slice stage
+processes only the slices this process owns (parallel/multihost.
+HostPartition), `save` merges every process's points in process order
+and process 0 writes the `.pcd`; with -od every process processes every
+slice and the pose graph's solve is the distributed one.
 """
 
 from __future__ import annotations
@@ -60,15 +68,6 @@ from kintinuous_tpu_torch.tracking.odometry import GroundTruthOdometry
 from kintinuous_tpu_torch.tracking.tracker import Tracker
 
 _SENTINEL = object()
-
-
-def check_engine_supported(cfg: KintinuousConfig) -> None:
-    for name, unported in (
-        ("devices > 1", cfg.devices > 1),
-        ("num_processes > 1", cfg.num_processes > 1),
-    ):
-        if unported:
-            raise NotImplementedError(f"{name}: not ported to kintinuous_tpu_torch yet")
 
 
 class Worker(threading.Thread):
@@ -107,8 +106,11 @@ class SlamEngine:
     run. device=None means the CUDA card (and raises without one)."""
 
     def __init__(self, cfg: KintinuousConfig, device=None):
-        check_engine_supported(cfg)
         self.cfg = cfg
+        if cfg.num_processes > 1:
+            from kintinuous_tpu_torch.parallel.multihost import init_distributed
+
+            init_distributed(cfg.coordinator, cfg.num_processes, cfg.process_id)
         self.device = device
         self.sw = Stopwatch(port=cfg.telemetry_port)
         # held by the frame loop for each frame (or batch); a reset
@@ -125,10 +127,15 @@ class SlamEngine:
         od = cfg.online_deformation
         self.deformation = MapDeformation(cfg, device=dev) if od else None
         self.place_rec = PlaceRecognition(cfg, device=dev) if od else None
-        self.tracker = Tracker(
-            cfg, device=dev, slice_callback=self.slice_q.put,
-            mesh_callback=(self.deformation.add_mesh_patch
-                           if od and cfg.incremental_mesh else None))
+        mesh_cb = self.deformation.add_mesh_patch if od and cfg.incremental_mesh else None
+        if cfg.devices > 1:
+            from kintinuous_tpu_torch.parallel.tracker import ShardedTracker
+
+            self.tracker = ShardedTracker(cfg, device=dev, slice_callback=self.slice_q.put,
+                                          mesh_callback=mesh_cb)
+        else:
+            self.tracker = Tracker(cfg, device=dev, slice_callback=self.slice_q.put,
+                                   mesh_callback=mesh_cb)
         self._pose_writer = None
         if cfg.save_file and not od:
             # per-frame poses stream out as they land; under -od the
@@ -141,6 +148,12 @@ class SlamEngine:
         self._last_kf_pose: Optional[np.ndarray] = None
         self.keyframes_dropped = 0
         self._slice_idx = 0
+        # several processes without -od: each processes the slices it owns
+        self._host_part = None
+        if cfg.num_processes > 1 and not od:
+            from kintinuous_tpu_torch.parallel.multihost import HostPartition
+
+            self._host_part = HostPartition(cfg.num_processes, cfg.process_id)
         self.workers: List[Worker] = []
         self._end_of_log = threading.Event()
         self.stop_requested = threading.Event()
@@ -157,7 +170,10 @@ class SlamEngine:
             return not (self._end_of_log.is_set() and self.slice_q.empty())
         if sl is _SENTINEL:
             return False
+        idx = self._slice_idx
         self._slice_idx += 1
+        if self._host_part is not None and not self._host_part.owns(idx):
+            return True  # another process owns this slice's work
         with self.sw.span("SliceProcessor"):
             self.slice_proc.process(sl)
         if sl.wall_time:
@@ -246,7 +262,7 @@ class SlamEngine:
         gt = None
         if cfg.trajectory_file:
             gt = GroundTruthOdometry(*load_trajectory(cfg.trajectory_file))
-        if (cfg.fast_mode and cfg.offline_batched and gt is None
+        if (cfg.fast_mode and cfg.offline_batched and cfg.devices == 1 and gt is None
                 and not cfg.frame_rate_limit and not cfg.live_source):
             self._run_batched(progress)
         else:
@@ -415,7 +431,17 @@ class SlamEngine:
             save_trajectory(out["poses"], [t / 1e6 for t in ts], poses)
         else:
             out["cloud"] = f"{base}.pcd"
-            self.slice_proc.save(out["cloud"], deoverlap=self.cfg.save_deoverlap)
+            if self._host_part is not None:
+                # every process's points, merged in process order;
+                # process 0 writes the map
+                from kintinuous_tpu_torch.parallel.multihost import allgather_points
+
+                merged = allgather_points(self.slice_proc.local_payload())
+                if self.cfg.process_id == 0:
+                    self.slice_proc.save(out["cloud"], deoverlap=self.cfg.save_deoverlap,
+                                         merged_payload=merged)
+            else:
+                self.slice_proc.save(out["cloud"], deoverlap=self.cfg.save_deoverlap)
             save_trajectory(out["poses"], [t / 1e6 for t in self.tracker.stamps_us],
                             self.tracker.poses)
         if (self.cfg.mesh and self.cfg.incremental_mesh and md is not None

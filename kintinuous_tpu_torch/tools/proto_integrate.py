@@ -93,8 +93,9 @@ def run_rows(tsdf, ids) -> None:
     K.require_cuda("run_rows", tsdf, align=16)  # float4 rows
     if ids.shape[0] == 0:  # no row: nothing to launch
         return
-    K.check(_lib().kt_probe_rows(tsdf.data_ptr(), ids.data_ptr(), None, ids.shape[0],
-                                 K.stream_of(tsdf)), "kt_probe_rows")
+    with K.on_device(tsdf):
+        K.check(_lib().kt_probe_rows(tsdf.data_ptr(), ids.data_ptr(), None, ids.shape[0],
+                                     K.stream_of(tsdf)), "kt_probe_rows")
     run_rows.launches += 1
 
 
@@ -126,9 +127,10 @@ def run_dma(tsdf, ids, corners, img, img2) -> None:
     K.require_cuda("run_dma", tsdf, align=16)  # float4 rows
     if ids.shape[0] == 0:
         return
-    K.check(_lib().kt_probe_dma(tsdf.data_ptr(), ids.data_ptr(), cy.data_ptr(),
-                                cx.data_ptr(), img.data_ptr(), ids.shape[0],
-                                img.shape[2], K.stream_of(tsdf)), "kt_probe_dma")
+    with K.on_device(tsdf):
+        K.check(_lib().kt_probe_dma(tsdf.data_ptr(), ids.data_ptr(), cy.data_ptr(),
+                                    cx.data_ptr(), img.data_ptr(), ids.shape[0],
+                                    img.shape[2], K.stream_of(tsdf)), "kt_probe_dma")
     run_dma.launches += 1
 
 
@@ -162,10 +164,11 @@ def run_full(tsdf, ids, corners, img, img2) -> None:
     K.require_cuda("run_full", tsdf, align=8)  # float2 loads
     if ids.shape[0] == 0:
         return
-    K.check(_lib().kt_probe_full(
-        tsdf.data_ptr(), ids.data_ptr(), cy.data_ptr(), cx.data_ptr(), img.data_ptr(),
-        img2.data_ptr(), ids.shape[0], img.shape[1], img.shape[2], img2.shape[1],
-        img2.shape[2], PW, PH, K.stream_of(tsdf)), "kt_probe_full")
+    with K.on_device(tsdf):
+        K.check(_lib().kt_probe_full(
+            tsdf.data_ptr(), ids.data_ptr(), cy.data_ptr(), cx.data_ptr(), img.data_ptr(),
+            img2.data_ptr(), ids.shape[0], img.shape[1], img.shape[2], img2.shape[1],
+            img2.shape[2], PW, PH, K.stream_of(tsdf)), "kt_probe_full")
     run_full.launches += 1
 
 
@@ -191,8 +194,9 @@ def run_dyn(n, tsdf, ids) -> None:
     K.require_cuda("run_dyn", tsdf, align=16)  # float4 rows
     if ids.shape[0] == 0:
         return
-    K.check(_lib().kt_probe_rows(tsdf.data_ptr(), ids.data_ptr(), n.data_ptr(),
-                                 ids.shape[0], K.stream_of(tsdf)), "kt_probe_rows")
+    with K.on_device(tsdf):
+        K.check(_lib().kt_probe_rows(tsdf.data_ptr(), ids.data_ptr(), n.data_ptr(),
+                                     ids.shape[0], K.stream_of(tsdf)), "kt_probe_rows")
     run_dyn.launches += 1
 
 

@@ -531,6 +531,16 @@ def state_to_numpy(state: TrackerState) -> TrackerState:
     )
 
 
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`: pinned and non-blocking on a card, so the
+    upload does not wait for the previous frame's device work. A decoded
+    log frame is a read-only view: copied only then."""
+    t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 class Tracker:
     """Host wrapper: owns the device state, streams frames through the
     step, and materialises poses and slices on the host one frame late.
@@ -561,13 +571,7 @@ class Tracker:
         self.collect_slices: bool = True
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        # a decoded log frame is a read-only view: copied only then
-        t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
-        if self.device.type == "cuda":
-            # pinned + non_blocking: the upload does not wait for the
-            # previous frame's device work
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return upload(arr, self.device)
 
     def process_frame(self, depth_mm: np.ndarray, rgb: Optional[np.ndarray],
                       timestamp_us: int,

@@ -98,6 +98,51 @@ def test_band_fusion_matches_its_plain_version(frame_on_card, case):
         assert int((((ck >> s) & 0xFF) - ((cp >> s) & 0xFF)).abs().max()) <= 1
 
 
+@pytest.mark.parametrize("slab", range(4))
+def test_band_fusion_on_a_slab_matches_its_plain_version(frame_on_card, slab):
+    """K1 and K2 on one of 4 z-slabs (Bz = B/4, z_block_offset = slab*Bz)
+    of the volume with a non-zero wrap, as the sharded fast step runs
+    them: weights equal and tsdf within 1e-5 against the plain versions,
+    K2 bit-exact; and the slab's rows equal the whole volume's fused at
+    the same wrap, bit for bit."""
+    from kintinuous_tpu_torch.ops.blocked import BlockedVolume
+
+    cfg, st, T, _, _, _, _ = frame_on_card
+    d, c = (torch.from_numpy(np.asarray(x)).to(T.device)
+            for x in render_frame(Scene(), CAM, orbit_trajectory(4, 0.06, 3.0)[3]))
+    depth_m, rgb, _, color_w = preprocess_frame(cfg, d, c)
+    R = cfg.volume_resolution
+    B = R // 8
+    rows = (B // 4) * B * B
+    wrap = torch.tensor([8, 16, 24], dtype=torch.int32, device=T.device)
+    whole = BlockedVolume(st.vol.tsdf.clone(), st.vol.cw.clone(), wrap, st.vol.origin)
+    sl = BlockedVolume(whole.tsdf[slab * rows:(slab + 1) * rows].clone(),
+                       whole.cw[slab * rows:(slab + 1) * rows].clone(), wrap, st.vol.origin)
+    tables, lists, params = integrate_plan(sl, CAM, depth_m, rgb, color_w, T, cfg.voxel_size,
+                                           cfg.trunc_dist, rows, rows, resolution=R,
+                                           z_block_offset=slab * (B // 4))
+    assert float(params[15]) == slab * (B // 4)
+    out = []
+    for fuse, carve in ((band_fusion, free_carve), (band_fusion_plain, free_carve_plain)):
+        t, c = sl.tsdf.clone(), sl.cw.clone()
+        fuse(t, c, tables.img_rows, lists.band_ids, lists.n_band, params, CAM,
+             cfg.voxel_size, cfg.trunc_dist, float(cfg.max_weight), R)
+        carve(t, c, lists.free_ids, lists.n_free, float(cfg.max_weight))
+        out.append((t, c))
+    wt, wl, wp = integrate_plan(whole, CAM, depth_m, rgb, color_w, T, cfg.voxel_size,
+                                cfg.trunc_dist, B ** 3, B ** 3)
+    band_fusion(whole.tsdf, whole.cw, wt.img_rows, wl.band_ids, wl.n_band, wp, CAM,
+                cfg.voxel_size, cfg.trunc_dist, float(cfg.max_weight))
+    free_carve(whole.tsdf, whole.cw, wl.free_ids, wl.n_free, float(cfg.max_weight))
+    torch.cuda.synchronize()
+    (tk, ck), (tp, cp) = out
+    assert torch.equal((ck >> 24) & 0xFF, (cp >> 24) & 0xFF)
+    assert float((tk - tp).abs().max()) <= 1e-5
+    part = slice(slab * rows, (slab + 1) * rows)
+    assert torch.equal(tk.view(torch.int32), whole.tsdf[part].view(torch.int32))
+    assert torch.equal(ck, whole.cw[part])
+
+
 @pytest.mark.parametrize("case", ["frame", "count0", "count1", "odd", "full_cap"])
 def test_free_carve_is_bit_exact(frame_on_card, case):
     """The frame's list; counts 0 (the volume bit-equal) and 1 of it; an
@@ -659,3 +704,72 @@ def test_model_renders_on_the_card_follow_the_cpu(card, frame_on_card, mode):
     a, b = render(card).int(), render("cpu").int()
     assert (a != b).any(dim=-1).float().mean() <= 1e-3
     assert (a - b).abs().max() <= 1
+
+
+@pytest.fixture(scope="module")
+def cards(card):
+    """Every card of the machine, at most 4; skips with fewer than 2."""
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two NVIDIA cards")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def test_kernels_launch_on_their_tensors_card(frame_on_card, cards):
+    """K1 and K2 on the last card's tensors while the first card is the
+    current device, as a slab mesh issues every card's work from one
+    thread: each launch runs on its tensors' card and matches the plain
+    versions there (weights equal, tsdf within 1e-5, colour within one
+    step), and the current device is left as it was."""
+    cfg, st, _, _, tables, lists, params = frame_on_card
+    first, last = cards[0], cards[-1]
+    img, ids, n, prm, fids, nf = (x.to(last) for x in (
+        tables.img_rows, lists.band_ids, lists.n_band, params, lists.free_ids, lists.n_free))
+    torch.cuda.set_device(first)
+    out = []
+    for fuse, carve in ((band_fusion, free_carve), (band_fusion_plain, free_carve_plain)):
+        t, c = st.vol.tsdf.to(last), st.vol.cw.to(last)
+        fuse(t, c, img, ids, n, prm, CAM, cfg.voxel_size, cfg.trunc_dist,
+             float(cfg.max_weight))
+        carve(t, c, fids, nf, float(cfg.max_weight))
+        out.append((t, c))
+    assert torch.cuda.current_device() == first.index
+    torch.cuda.synchronize(last)
+    (tk, ck), (tp, cp) = out
+    assert torch.equal((ck >> 24) & 0xFF, (cp >> 24) & 0xFF)
+    assert float((tk - tp).abs().max()) <= 1e-5
+    for s in (0, 8, 16):
+        assert int((((ck >> s) & 0xFF) - ((cp >> s) & 0xFF)).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "dense"])
+def test_sharded_tracker_across_cards_follows_one_card(cards, fast):
+    """The sharded tracker with one slab on each card (build_mesh, as
+    --devices N builds it) against the same slabs all on the first card:
+    the same operations in the same order, so poses within 1e-6 and the
+    volume bit-equal; the fast step launches K1 and K2 once a slab a
+    frame."""
+    from kintinuous_tpu_torch.ops.blocked import as_dense
+    from kintinuous_tpu_torch.parallel.mesh import SlabMesh
+    from kintinuous_tpu_torch.parallel.tracker import ShardedTracker, build_mesh
+
+    n = len(cards)
+    # two levels: the (half-resolution) rows of each divide by 4 slabs
+    cfg = cfg_small().replace(fast_mode=fast, devices=n, pyramid_levels=2,
+                              icp_iterations=(10, 5))
+    poses = orbit_trajectory(6, radius=0.06, angle_deg=3.0)
+    frames = [render_frame(Scene.default(), CAM, T) for T in poses]
+    runs = []
+    for mesh in (build_mesh(n), SlabMesh([cards[0]] * n)):
+        before = band_fusion.launches, free_carve.launches
+        tr = ShardedTracker(cfg, mesh=mesh)
+        for i, f in enumerate(frames):
+            tr.process_frame(*f, i * 33333)
+        tr.flush()
+        moved = band_fusion.launches - before[0], free_carve.launches - before[1]
+        assert moved == ((n * len(frames),) * 2 if fast else (0, 0)), moved
+        runs.append(tr)
+    assert [d.index for d in runs[0].mesh.devices] == list(range(n))
+    np.testing.assert_allclose(np.array(runs[0].poses), np.array(runs[1].poses), atol=1e-6)
+    got, want = (as_dense(r.state.vol) for r in runs)
+    assert torch.equal(got.tsdf.cpu().view(torch.int32), want.tsdf.cpu().view(torch.int32))

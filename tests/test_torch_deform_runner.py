@@ -202,9 +202,37 @@ def test_two_loops_then_saves(tmp_path):
 
 
 def test_the_runner_refuses_several_processes():
-    with pytest.raises(NotImplementedError, match="num_processes"):
-        MapDeformation(tiny_test_config(num_processes=2, process_id=0,
-                                        coordinator="localhost:1"), device="cpu")
+    """Several processes are ported: inside an initialised gloo group
+    (here of one process), num_processes=2 builds the distributed pose
+    graph, whose solve equals PoseGraph's on one process."""
+    import socket
+
+    import torch.distributed as dist
+
+    from kintinuous_tpu_torch.backend.pose_graph import PoseGraph
+    from kintinuous_tpu_torch.parallel.multihost import DistributedPoseGraph
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        md = MapDeformation(tiny_test_config(num_processes=2, process_id=0,
+                                             coordinator=f"127.0.0.1:{port}"), device="cpu")
+        assert isinstance(md.graph, DistributedPoseGraph)
+        ref = PoseGraph(device="cpu")
+        for g in (md.graph, ref):
+            g.add_node(0, np.eye(4))
+            step = np.eye(4)
+            step[:3, 3] = [0.1, 0.0, 0.0]
+            g.add_odometry(0, 1, step)
+            g.add_odometry(1, 2, step)
+            g.add_loop(2, 0, np.linalg.inv(step @ step @ step))
+        assert abs(md.graph.optimise(5) - ref.optimise(5)) <= 1e-6
+        np.testing.assert_allclose(np.array(md.graph.poses), np.array(ref.poses), atol=1e-6)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_three_threads_calling_in_keep_the_runner_consistent():

@@ -65,7 +65,9 @@ RUNTIME_MODULES = [
     "tools/proto_integrate.py", "backend/features.py", "backend/place_recognition.py",
     "backend/pose_graph.py", "backend/deformation.py", "backend/deform_runner.py",
     "eval/loop_gate.py", "ops/raycast_fast.py", "ops/image.py", "io/live.py",
-    "viz/png.py", "viz/headless.py", "viz/server.py",
+    "viz/png.py", "viz/headless.py", "viz/server.py", "parallel/mesh.py",
+    "parallel/sharded.py", "parallel/fast_sharded.py", "parallel/tracker.py",
+    "parallel/multihost.py",
 ]
 
 
@@ -128,18 +130,33 @@ def test_tracker_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
     assert Tracker(cfg, device="cpu").device.type == "cpu"
 
 
-def test_unported_options_raise(tmp_path):
-    """What is still unported raises, naming it: several devices. Live
-    capture (-live) and the web viewer (--viz-port) are ported: their
-    flags build a configuration and an engine."""
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """Several devices are ported: devices=2 with device="cpu" builds the
+    engine on a ShardedTracker of 2 CPU slabs and --devices and
+    --num-processes reach the configuration; asking for more cards than
+    the machine has raises the JAX package's error. Live capture (-live)
+    and the web viewer (--viz-port) build a configuration and an
+    engine."""
     from kintinuous_tpu_torch import cli
+    from kintinuous_tpu_torch.parallel.tracker import ShardedTracker, build_mesh
     from kintinuous_tpu_torch.runtime.engine import SlamEngine
     from kintinuous_tpu_torch.tracking.tracker import Tracker
 
-    with pytest.raises(NotImplementedError, match="devices"):
-        SlamEngine(pcfg.tiny_test_config(fast_mode=True, devices=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="--devices"):
-        cli.build_config(["-l", "seq.klg", "--fast", "--devices", "2"])
+    cam = pcfg.CameraIntrinsics(fx=70.0, fy=70.0, cx=32.0, cy=24.0, width=64, height=48)
+    eng = SlamEngine(pcfg.tiny_test_config(camera=cam, fast_mode=True, devices=2),
+                     device="cpu")
+    assert isinstance(eng.tracker, ShardedTracker) and eng.tracker.n == 2
+    assert eng.tracker.mesh.devices == [torch.device("cpu")] * 2
+    cfg = cli.build_config(["-l", "seq.klg", "--fast", "--devices", "2",
+                            "--num-processes", "2", "--process-id", "1",
+                            "--coordinator", "127.0.0.1:1234"])
+    assert (cfg.devices, cfg.num_processes, cfg.process_id, cfg.coordinator) == (
+        2, 2, 1, "127.0.0.1:1234")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="requested 2 devices, only 1 available"):
+        build_mesh(2, "cuda:0")
+    monkeypatch.undo()
     live = pcfg.tiny_test_config(fast_mode=True, live_source="localhost:1",
                                  save_file=str(tmp_path / "out"))
     assert SlamEngine(live, device="cpu").cfg.live_source == "localhost:1"

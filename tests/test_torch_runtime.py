@@ -120,22 +120,22 @@ def test_cli_fast_run_writes_the_poses(seq, tmp_path):  # noqa: F811
     assert bool(dump["blocked"])
 
 
-@pytest.mark.parametrize("flags,names,ported", [
-    (["-live", "sensor.sock"], "-live", True), (["--viz-port", "8000"], "--viz-port", True),
-    (["--devices", "2"], "--devices", False), (["--num-processes", "2"], "--num-processes", False)],
+@pytest.mark.parametrize("flags,fields", [
+    (["-live", "sensor.sock"], ("live_source",)), (["--viz-port", "8000"], ()),
+    (["--devices", "2"], ("devices",)),
+    (["--num-processes", "2", "--process-id", "1", "--coordinator", "127.0.0.1:9"],
+     ("num_processes", "process_id", "coordinator"))],
     ids=["live", "viz", "devices", "num_processes"])
-def test_cli_unported_flags_raise(flags, names, ported):
-    """What the port does not run yet raises, naming the flag. -live and
-    --viz-port are ported: they build the JAX CLI's configuration."""
+def test_cli_unported_flags_raise(flags, fields):
+    """Every flag of the JAX CLI is ported now: -live, --viz-port,
+    --devices and --num-processes (with --process-id and --coordinator)
+    each build the JAX CLI's configuration."""
     from kintinuous_tpu import cli as jcli
 
     argv = ["-l", "seq.klg", "--fast", *flags]
-    if not ported:
-        with pytest.raises(NotImplementedError, match=names):
-            cli.build_config(argv)
-        return
     a, b = jcli.build_config(argv), cli.build_config(argv)
-    assert (b.live_source, b.log_file, b.fast_mode) == (a.live_source, a.log_file, a.fast_mode)
+    for f in ("live_source", "log_file", "fast_mode", "devices", "num_processes") + fields:
+        assert getattr(b, f) == getattr(a, f), f
 
 
 @pytest.mark.parametrize("flag,field", [("-r", "rgbd_odometry"), ("-ri", "icp_plus_rgbd"),
