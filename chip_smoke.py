@@ -63,9 +63,10 @@ prediction, 16-voxel shifts, ICP odometry):
      274-340): `lap_scene(3.2, 2.4)` and its 419-frame `lap_trajectory`
      with 6 mm depth noise, rendered at 640x480 on every core before
      phase 1 (io/synth.render_frames), its colour written uncompressed
-     (the card's machine has no JPEG codec: io/klg._decode_rgb is
-     replaced in this process by a reshape of the raw bytes), through
-     the CLI in process, batched, at config A with its dynamic cube:
+     (lossless: io/klg._decode_rgb is replaced in this process by a
+     reshape of the raw bytes, and the engine is held to KlgLogReader,
+     whose decode that is), through the CLI in process, batched, at
+     config A with its dynamic cube:
      `--fast -fod -t 16 -d -dc -ri -od -m -lt 0 --prior 0.01`. 419
      poses, shifts, at least one loop accepted, every accepted loop
      genuine (eval/loop_gate), a `_opt.pcd` with points and a `_opt.ply`
@@ -118,13 +119,24 @@ prediction, 16-voxel shifts, ICP odometry):
      `--num-processes 2` as two processes sharing the card, against
      phase 4's single-process run, and the distributed pose graph in two
      more processes against PoseGraph;
+ 15. the .klg readers and the JPEG codec: the machine's probe (nvjpeg.h,
+     jpeglib.h, zlib.h, g++, make, ldconfig, `make -C native
+     libklg_reader.so`, the OpenCV and Pillow versions); (a) the JPEG
+     fixture tests/data/jpeg_160x120.klg through KlgLogReader on the
+     machine's codec (OpenCV, else Pillow), within a mean of 2 levels of
+     the stored libjpeg decode; (b) where the native library builds,
+     NativeKlgReader on the fixture; (c) phase 4's log through both
+     readers, ms a frame, depth bit-equal; (d) the batched CLI on the
+     fixture (`--fast -fod -t 16`, 512^3 over 6 m): 4 poses, the reader
+     and codec it used, fps;
 
 and checks that each run of phases 2-4, 6, 7 and 11 launched K1-K4,
 phase 5 the rebuild, phase 8 the four probes, phase 9 K1, K2, K4 and K5
 once a frame and K3 never, phase 10 no kernel, phase 12 K1 and K2 once
 a frame and K3-K5 never, phase 13 K1-K4 once a frame and K5 never,
 phase 14a K1 and K2 only, phase 14b K1 and K2 4 times a frame (once a
-slab; 5 in the replay, which runs the single card too) and K3-K5 never, and phase 14c none, with the counts set to 0
+slab; 5 in the replay, which runs the single card too) and K3-K5 never,
+phase 14c none, and phase 15 K1-K4, with the counts set to 0
 before each path. A {"phase_seconds": ...} line gives each phase's
 host seconds.
 `--trace FRAMES`
@@ -742,6 +754,7 @@ def engine_cli(cfg, dev, card: str, log_dir: str, batched: bool) -> dict:
     n_shifts = sum(1 for s in tracker.shift_log if np.any(s != 0))
     stats = seen["engine"].sw.stats()
     res = dict(phase="engine", batched=batched, card=card, frames=ENGINE_FRAMES,
+               reader=seen["engine"].reader, codec=seen["engine"].codec,
                rc=rc, seconds_with_save=seconds, fps=seen["fps"], poses=len(est_s),
                ate_m=ate, matched=n, shift_frames=n_shifts, pcd_points=n_points,
                batches=seen["batches"],
@@ -834,8 +847,7 @@ def resume(cfg, dev, poses, frames, card: str, phase: str = "resume") -> dict:
 def track_orbit_rgbd(cfg, dev, frames, poses, card: str) -> dict:
     """Phase 6: config B, phase 2's orbit tracked with fused ICP+RGB-D
     odometry on the rendered colour, through Tracker.process_frame (the
-    colour goes in directly: a .klg would carry it as JPEG, and the card's
-    machine has no JPEG codec). In this mode icp_count is the RGB inlier
+    colour goes in directly, not through a .klg's lossy JPEG). In this mode icp_count is the RGB inlier
     count."""
     import torch
 
@@ -1229,11 +1241,10 @@ class LapLog:
     """Phase 11's input: bench C's lap (`lap_scene(3.2, 2.4)`,
     `lap_trajectory(**LAP_KW)`, 6 mm depth noise) at the camera's width,
     rendered by io/synth.render_frames over a pool of one process a core
-    into a .klg, before any timed phase runs. The card's machine has no
-    JPEG codec, so the colour is written uncompressed
-    (io/klg._encode_rgb is replaced by the raw bytes while the log is
-    written; phase 11 reads them back with a reshape in place of
-    io/klg._decode_rgb)."""
+    into a .klg, before any timed phase runs. The colour is written
+    uncompressed, lossless (io/klg._encode_rgb is replaced by the raw
+    bytes while the log is written; phase 11 reads them back with a
+    reshape in place of io/klg._decode_rgb)."""
 
     def __init__(self, cam, log_dir: str):
         import multiprocessing
@@ -1414,8 +1425,10 @@ def od_lap(cfg, dev, card: str, lap: LapLog, log_dir: str) -> dict:
     274-340) at config A with its dynamic cube, 640x480, 512^3 over 6 m:
     the CLI in process, batched, `--fast -fod -t 16 -d -dc -ri -od -m -lt
     0 --prior 0.01`, fed the lap's uncompressed colour (io/klg._decode_rgb
-    replaced by a reshape of the raw bytes, standing in for the JPEG
-    codec the card's machine lacks; without it the reader raises). Then
+    replaced by a reshape of the raw bytes). The engine is held to
+    KlgLogReader (klg_native.available patched to False): the native
+    library would decode the raw bytes as JPEG, fail, and zero-fill the
+    colour, and the lap would lose its loops. Then
     the -od backend on the card against the CPU (od_card_vs_cpu) and an
     -od engine checkpoint restored into a fresh engine."""
     import gc
@@ -1428,7 +1441,7 @@ def od_lap(cfg, dev, card: str, lap: LapLog, log_dir: str) -> dict:
     from kintinuous_tpu_torch.backend import pose_graph as pgmod
     from kintinuous_tpu_torch.eval.ate import absolute_trajectory_error
     from kintinuous_tpu_torch.eval.loop_gate import tag_loop_log
-    from kintinuous_tpu_torch.io import klg
+    from kintinuous_tpu_torch.io import klg, klg_native
     from kintinuous_tpu_torch.io.pcd import load_pcd
     from kintinuous_tpu_torch.io.ply import load_ply
     from kintinuous_tpu_torch.io.synth import lap_scene, render_frame
@@ -1467,8 +1480,8 @@ def od_lap(cfg, dev, card: str, lap: LapLog, log_dir: str) -> dict:
         seen["dg_last"] = [x.clone() if torch.is_tensor(x) else x for x in a]
         return dg_core(*a)
 
-    def raw(buf):
-        return np.frombuffer(buf, np.uint8).reshape(cam.height, cam.width, 3)
+    def raw(buf, width, height):
+        return np.frombuffer(buf, np.uint8).reshape(height, width, 3)
 
     def keep(self, *a, **k):
         seen["engine"], seen["fps"] = self, self.fps
@@ -1486,6 +1499,9 @@ def od_lap(cfg, dev, card: str, lap: LapLog, log_dir: str) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     prmod.detect_orb, prmod.refine_loop, pgmod.gn_core, dgmod.gn_core = orb, dense, pg, dg
     klg._decode_rgb, SlamEngine.save = raw, keep
+    # KlgLogReader, whose decode is `raw`: the native library would read
+    # the raw colour as JPEG, fail, and zero-fill it
+    native_available, klg_native.available = klg_native.available, lambda: False
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()) as out:
@@ -1495,6 +1511,7 @@ def od_lap(cfg, dev, card: str, lap: LapLog, log_dir: str) -> dict:
         prmod.detect_orb, prmod.refine_loop, pgmod.gn_core, dgmod.gn_core = (
             detect, refine, pg_core, dg_core)
         klg._decode_rgb, SlamEngine.save = decode, save
+        klg_native.available = native_available
     peak = torch.cuda.max_memory_allocated(dev) - mem0 if cuda else None
     engine = seen["engine"]
     tr, md, pr = engine.tracker, engine.deformation, engine.place_rec
@@ -1696,7 +1713,7 @@ def live_viewer(cfg, dev, card: str, frames, poses, log_dir: str,
     orbit (22 poses, the server's renders looked up in phase 2's frames)
     at LIVE_FPS over a UNIX socket, looping, colour as raw bytes
     (io/klg._encode_rgb and _decode_rgb replaced in this process: the
-    card's machine has no JPEG codec). The CLI runs in process: `-live
+    frames arrive lossless). The CLI runs in process: `-live
     <sock> -n 60 --fast -fod -t 16 --viz-port 0`, at config A. A client
     polls the viewer every VIEWER_POLL_S as its page does, fetching every
     endpoint, and toggles pause twice. LIVE_FRAMES poses with ATE < 1 cm
@@ -1790,8 +1807,8 @@ def live_viewer(cfg, dev, card: str, frames, poses, log_dir: str,
     viewer_init, viewer_close = vs.ViewerServer.__init__, vs.ViewerServer.close
     engine_run, reader_cls = engine_mod.SlamEngine.run, engine_mod.LiveLogReader
     klg._encode_rgb = lambda rgb, quality=90: np.ascontiguousarray(rgb).tobytes()
-    klg._decode_rgb = lambda buf: np.frombuffer(buf, np.uint8).reshape(
-        cam.height, cam.width, 3)
+    klg._decode_rgb = lambda buf, width, height: np.frombuffer(buf, np.uint8).reshape(
+        height, width, 3)
     synth.render_frame = lambda scene, c, T: rendered[np.asarray(T).tobytes()]
     sock = f"{log_dir}/sensor.sock"
     srv = None
@@ -2290,6 +2307,138 @@ def two_processes(cfg, dev, card: str, log_dir: str) -> dict:
     return res
 
 
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(HERE, "tests", "data", "jpeg_160x120.klg")  # phase 15's JPEG log
+FIXTURE_DECODE = os.path.join(HERE, "tests", "data", "jpeg_160x120_libjpeg.npz")
+FIXTURE_SIZE = (160, 120)
+# JPEG decoders' mean difference to libjpeg's decode (tests/test_io.py:132)
+DECODER_BOUND = 2.0
+
+
+def reader_probe() -> dict:
+    """Phase 15's probe of the machine: the JPEG and zlib headers, the
+    compiler, the shared libraries, `make -C native libklg_reader.so`
+    (the native reader's build) with its rc and output's last lines, and
+    the OpenCV and Pillow versions this Python imports (None: absent)."""
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    heads = {h: os.path.exists(h) for h in (os.path.join(cuda, "include", "nvjpeg.h"),
+                                            "/usr/local/cuda/include/nvjpeg.h",
+                                            "/usr/include/jpeglib.h", "/usr/include/zlib.h")}
+    tools = {t: subprocess.run(["which", t], capture_output=True, text=True).stdout.strip()
+             for t in ("g++", "make")}
+    libs = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    libs = [ln.strip() for ln in libs.splitlines()
+            if any(k in ln for k in ("nvjpeg", "libjpeg", "libz."))]
+    mk = subprocess.run(["make", "-C", os.path.join(HERE, "native"), "libklg_reader.so"],
+                        capture_output=True, text=True, timeout=120)
+    codecs = {}
+    for name in ("cv2", "PIL"):
+        try:
+            codecs[name] = __import__(name).__version__
+        except ImportError:
+            codecs[name] = None
+    return {"headers": heads, "tools": tools, "ldconfig": libs, "make_rc": mk.returncode,
+            "make_output": (mk.stdout + mk.stderr).strip().splitlines()[-4:],
+            "python_codecs": codecs}
+
+
+def reader_cli(dev, log_dir: str, tag: str) -> dict:
+    """The batched CLI (`--fast -fod -t 16`, config A's volume) in process
+    on the JPEG fixture at its 160x120: the reader and codec it used, its
+    poses and fps."""
+    from kintinuous_tpu_torch import cli
+    from kintinuous_tpu_torch.io.tum import load_trajectory
+    from kintinuous_tpu_torch.runtime.engine import SlamEngine
+
+    seen = {}
+    run_ = SlamEngine.run
+
+    def keep(self, *a, **k):
+        out = run_(self, *a, **k)
+        seen["engine"] = self
+        return out
+
+    w, h = FIXTURE_SIZE
+    calib = f"{log_dir}/calib_{w}x{h}.txt"
+    with open(calib, "w") as f:
+        f.write(f"{w * 0.825} {w * 0.825} {w / 2} {h / 2} {w} {h}\n")
+    base = f"{log_dir}/reader_{tag}"
+    SlamEngine.run = keep
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = cli.main(["-l", FIXTURE, "--fast", "-fod", "-t", "16", "-c", calib,
+                           "-s", "6.0", "--resolution", "512", "-o", base,
+                           "--device", str(dev)])
+    finally:
+        SlamEngine.run = run_
+    stamps, poses = load_trajectory(f"{base}.poses")
+    eng = seen["engine"]
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("reader:")]
+    return dict(rc=rc, reader=eng.reader, codec=eng.codec, poses=len(stamps), fps=eng.fps,
+                cli_reader_line=lines[-1] if lines else None)
+
+
+def reader(dev, card: str, log_dir: str) -> dict:
+    """Phase 15: the .klg readers on the card's machine. The probe; (a)
+    the JPEG fixture (tests/data/jpeg_160x120.klg) through KlgLogReader
+    on the machine's codec (OpenCV, else Pillow) against the stored
+    libjpeg decode (mean < 2 levels); (b) where the native library
+    loads, NativeKlgReader on the fixture (colour against the stored
+    decode, depth and timestamps against KlgLogReader); (c) phase 4's
+    640x480 depth-only log through both readers, ms a frame, depth
+    bit-equal; (d) the batched CLI on the fixture: the reader and codec,
+    poses and fps."""
+    from kintinuous_tpu_torch.io import klg, klg_native
+
+    probe = reader_probe()
+    print(json.dumps({"phase": "reader_probe", "card": card, **probe}), flush=True)
+    w, h = FIXTURE_SIZE
+    want = np.load(FIXTURE_DECODE)["rgb"].astype(int)
+
+    def read_all(path, size=FIXTURE_SIZE):
+        t0 = time.perf_counter()
+        with klg.KlgLogReader(path, width=size[0], height=size[1]) as r:
+            frames = list(r)
+        return frames, (time.perf_counter() - t0) * 1e3 / max(len(frames), 1)
+
+    res = {"phase": "reader", "card": card}
+    # (a) the machine's codec
+    base, res["machine_codec_ms_a_frame"] = read_all(FIXTURE)
+    res["machine_codec"] = klg.codec_name()
+    d = np.stack([np.abs(f.rgb.astype(int) - want[i]) for i, f in enumerate(base)])
+    res["machine_codec_mean_diff"] = float(d.reshape(len(base), -1).mean(1).max())
+    res["machine_codec_max_diff"] = int(d.max())
+    check(len(base) == 4 and res["machine_codec_mean_diff"] < DECODER_BOUND,
+          f"phase 15a: the machine's codec against libjpeg {res}")
+    # (b) the native reader on the fixture
+    res["native"] = klg_native.available()
+    res["native_reason"] = klg_native.unavailable_reason()
+    if res["native"]:
+        with klg_native.NativeKlgReader(FIXTURE, w, h) as r:
+            nd, nc, nts = r.read_batch(0, r.total_num_frames)
+        res["native_max_diff"] = int(np.abs(nc.astype(int) - want).max())
+        check(np.array_equal(nd, np.stack([f.depth for f in base]))
+              and np.array_equal(nts, [f.timestamp for f in base]),
+              "phase 15b: the native reader's depth or timestamps")
+    # (c) phase 4's depth-only log through both readers
+    cam = (640, 480)
+    walk, res["walk_python_ms_a_frame"] = read_all(f"{log_dir}/walk.klg", cam)
+    if res["native"]:
+        t0 = time.perf_counter()
+        with klg_native.NativeKlgReader(f"{log_dir}/walk.klg", *cam) as r:
+            nd, _, _ = r.read_batch(0, r.total_num_frames)
+        res["walk_native_ms_a_frame"] = (time.perf_counter() - t0) * 1e3 / len(nd)
+        check(np.array_equal(nd, np.stack([f.depth for f in walk])),
+              "phase 15c: the readers' depth differs")
+    # (d) the batched CLI on the fixture
+    res["cli"] = reader_cli(dev, log_dir, "machine")
+    print(json.dumps(res), flush=True)
+    run_ = res["cli"]
+    check(run_["rc"] == 0 and run_["poses"] == 4 and run_["reader"] in ("native", "python")
+          and run_["codec"] is not None, f"phase 15d: the CLI run {run_}")
+    return res
+
+
 def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     """All phases on `dev`; returns the kernel rows with the launch
     counts of the paths phases 2-13 drive (each engine run is a path)."""
@@ -2420,10 +2569,12 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
     del ref
     counted("dense_sharded", dense_sharded, cfg, dev, frames, poses, card)
     counted("two_processes", two_processes, cfg, dev, card, d)
+    # phase 15: the .klg readers and the JPEG codec
+    counted("reader", reader, dev, card, d)
     for path in DENSE_PATHS + ("dense_sharded",):
         launched = {k: n for k, n in by_path[path].items() if n}
         assert not launched, f"the {path} path launched {launched}"
-    for path in ("orbit", "walk", "orbit_rgbd", "engine_mesh", "od_lap") + tuple(
+    for path in ("orbit", "walk", "orbit_rgbd", "engine_mesh", "od_lap", "reader") + tuple(
             p for p, _ in ENGINE_RUNS):
         # K1-K4 run on every frame
         for name in ("band_fusion", "free_carve", "mirror_refresh", "tile_raycast"):

@@ -17,10 +17,9 @@ The reference's Deformation thread:
   saves           the deformed pool (`_opt.pcd`), the optimised
                   trajectory, the deformed mesh (`_opt.ply`)
 
-The GN solves run on `device` (None: the card); with several processes
-(cfg.num_processes > 1) the pose graph is a DistributedPoseGraph, whose
-solve splits the factors over the processes. One lock serialises the
-three threads that call in: the frame loop (add_frame_pose), the slice
+The GN solves run on `device` (None: the card), in one process: the
+engine refuses -od with several. One lock serialises the three threads
+that call in: the frame loop (add_frame_pose), the slice
 worker (add_slice, add_mesh_patch) and the place-recognition worker
 (add_loop).
 """
@@ -45,14 +44,7 @@ class MapDeformation:
     def __init__(self, cfg: KintinuousConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.num_processes > 1:
-            # several processes: the GN solve's factor products split over
-            # them (parallel/multihost.py)
-            from kintinuous_tpu_torch.parallel.multihost import DistributedPoseGraph
-
-            self.graph = DistributedPoseGraph(device=self.device)
-        else:
-            self.graph = PoseGraph(device=self.device)
+        self.graph = PoseGraph(device=self.device)
         self.dgraph = DeformationGraph(k=cfg.deformation_k, sample_dist=cfg.dense_sampling_rate,
                                        device=self.device)
         self.slices: List[CloudSlice] = []

@@ -76,6 +76,11 @@ class MeshCollector:
     def add(self, patch: MeshPatch):
         self.patches.append(patch)
 
+    @property
+    def n_triangles(self) -> int:
+        """Faces over every patch, before welding."""
+        return sum(len(p.faces) for p in self.patches)
+
     def save(self, path: str) -> int:
         patches = [p for p in self.patches if len(p.vertices)]
         if not patches:

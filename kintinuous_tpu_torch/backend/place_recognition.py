@@ -31,7 +31,7 @@ Keyframes keep their depth as zlib uint16 mm and no colour
 (`rgb_jpg = b""`): the port has no JPEG encoder on the card's machine,
 and nothing on the path reads a keyframe's colour. A keyframe
 restored from a JAX checkpoint keeps its JPEG bytes; `Keyframe.rgb`
-decodes them through `io/klg.jpeg_codec()`, which raises where no codec
+decodes them through `io/klg._decode_rgb`, which raises where no codec
 exists.
 
 Emits LoopConstraint records for the deformation runner.
@@ -102,7 +102,7 @@ class Keyframe:
             return None
         from kintinuous_tpu_torch.io import klg
 
-        return klg._decode_rgb(self.rgb_jpg)
+        return klg._decode_rgb(self.rgb_jpg, self.depth_shape[1], self.depth_shape[0])
 
 
 @dataclass

@@ -53,7 +53,7 @@ def estimate_normals(points: np.ndarray, k: int = 20,
         return np.zeros((0, 3), np.float32)
     k = min(k, n)
     _, idx = cKDTree(points).query(points, k=k, workers=-1)
-    nbrs = points[idx]  # (n,k,3)
+    nbrs = points[idx.reshape(n, k)]  # (n,k,3); the query drops the axis at k = 1
     centered = nbrs - nbrs.mean(axis=1, keepdims=True)
     cov = np.einsum("nki,nkj->nij", centered, centered) / k
     _, v = np.linalg.eigh(cov)

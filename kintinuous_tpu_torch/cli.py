@@ -200,6 +200,7 @@ def _run(a, cfg: KintinuousConfig, engine) -> int:
     with prof:
         engine.run(progress=progress)
     print()
+    print(f"reader: {engine.reader}, colour: {engine.codec or 'none'}")
     outputs = engine.save()
     if a.profile_dir:
         os.makedirs(a.profile_dir, exist_ok=True)

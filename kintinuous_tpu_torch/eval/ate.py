@@ -70,3 +70,14 @@ def absolute_trajectory_error(
         est_xyz = (s * (R @ est_xyz.T)).T + t
     err = np.linalg.norm(gt_xyz - est_xyz, axis=1)
     return float(np.sqrt(np.mean(err ** 2))), len(pairs)
+
+
+def ate_files(est_path: str, gt_path: str, max_dt: float = 0.02,
+              align: bool = True) -> Tuple[float, int]:
+    """(ATE RMSE in metres, associated pairs) between two trajectory
+    files: TUM lines or the reference's comma-separated ground truth."""
+    from kintinuous_tpu_torch.io.tum import load_trajectory
+
+    gs, gp = load_trajectory(gt_path)
+    es, ep = load_trajectory(est_path)
+    return absolute_trajectory_error(gs, gp, es, ep, max_dt=max_dt, align=align)

@@ -46,3 +46,38 @@ def project(cam: CameraIntrinsics, pts):
         & torch.isfinite(v)
     )
     return torch.stack([u, v], dim=-1), valid
+
+
+def bilinear_sample(img, uv, valid=None):
+    """Sample an (..., H, W) image bilinearly at float pixel coordinates uv
+    (..., 2). Coordinates are clamped into the image; where `valid` (from
+    project) is False the sample is NaN. NaN-safe only for a NaN-free image."""
+    H, W = img.shape[-2], img.shape[-1]
+    u = torch.clamp(uv[..., 0], 0.0, W - 1.000001)
+    v = torch.clamp(uv[..., 1], 0.0, H - 1.000001)
+    u0 = torch.floor(u).to(torch.int64)
+    v0 = torch.floor(v).to(torch.int64)
+    du = u - u0
+    dv = v - v0
+    u1 = torch.clamp(u0 + 1, max=W - 1)
+    v1 = torch.clamp(v0 + 1, max=H - 1)
+    flat = img.reshape(img.shape[:-2] + (H * W,))
+
+    def take(vv, uu):
+        return flat[..., vv * W + uu]
+
+    s = (take(v0, u0) * (1 - du) * (1 - dv) + take(v0, u1) * du * (1 - dv)
+         + take(v1, u0) * (1 - du) * dv + take(v1, u1) * du * dv)
+    if valid is not None:
+        s = torch.where(valid, s, torch.nan)
+    return s
+
+
+def nearest_sample(img, uv):
+    """Nearest-neighbour sample of an (..., H, W) image at uv (..., 2),
+    clamped into the image (halves round to even, as jnp.round does)."""
+    H, W = img.shape[-2], img.shape[-1]
+    u = torch.clamp(torch.round(uv[..., 0]).to(torch.int64), 0, W - 1)
+    v = torch.clamp(torch.round(uv[..., 1]).to(torch.int64), 0, H - 1)
+    flat = img.reshape(img.shape[:-2] + (H * W,))
+    return flat[..., v * W + u]

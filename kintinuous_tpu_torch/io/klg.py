@@ -60,12 +60,25 @@ def jpeg_codec():
         ) from None
 
 
-def _decode_rgb(buf: bytes) -> np.ndarray:
+def codec_name() -> str:
+    """"opencv" or "pillow": the decoder jpeg_codec() gives."""
+    return "opencv" if jpeg_codec().__name__ == "cv2" else "pillow"
+
+
+def _decode_rgb(buf: bytes, width: int, height: int) -> np.ndarray:
+    """A JPEG as (height, width, 3) uint8 RGB; raises if it does not
+    decode to that shape."""
     codec = jpeg_codec()
     if codec.__name__ == "cv2":
         bgr = codec.imdecode(np.frombuffer(buf, dtype=np.uint8), codec.IMREAD_COLOR)
-        return bgr[:, :, ::-1].copy()  # BGR -> RGB
-    return np.asarray(codec.open(io.BytesIO(buf)).convert("RGB"))
+        if bgr is None:
+            raise ValueError("OpenCV cannot decode this JPEG")
+        rgb = bgr[:, :, ::-1].copy()  # BGR -> RGB
+    else:
+        rgb = np.asarray(codec.open(io.BytesIO(buf)).convert("RGB"))
+    if rgb.shape != (height, width, 3):
+        raise ValueError(f"a JPEG of shape {rgb.shape}, not ({height}, {width}, 3)")
+    return rgb
 
 
 def _encode_rgb(rgb: np.ndarray, quality: int = 90) -> bytes:
@@ -113,7 +126,7 @@ class KlgLogReader:
         img_buf = self._f.read(img_size) if img_size > 0 else b""
         depth = np.frombuffer(zlib.decompress(depth_buf), dtype="<u2").reshape(
             self.height, self.width)
-        rgb = _decode_rgb(img_buf) if img_buf else None
+        rgb = _decode_rgb(img_buf, self.width, self.height) if img_buf else None
         frame = Frame(timestamp=ts, depth=depth, rgb=rgb, index=self._next_read)
         self._next_read += 1
         return frame

@@ -99,7 +99,7 @@ class LiveLogReader:
             return None
         depth = np.frombuffer(zlib.decompress(dbuf), np.uint16).reshape(
             self.height, self.width)
-        rgb = (klg._decode_rgb(cbuf) if cbuf
+        rgb = (klg._decode_rgb(cbuf, self.width, self.height) if cbuf
                else np.zeros((self.height, self.width, 3), np.uint8))
         return Frame(timestamp=ts, depth=depth, rgb=rgb, index=self._seq)
 

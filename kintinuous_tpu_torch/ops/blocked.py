@@ -123,6 +123,25 @@ def flat_index(R: int, pz, py, px):
     return row * CELLS + off
 
 
+def gather_voxels(blocked_arr: torch.Tensor, R: int, pz, py, px) -> torch.Tensor:
+    """The voxels at physical coordinates (pz, py, px), any shape, of a
+    blocked (B^3, 4, 128) array."""
+    return blocked_arr.reshape(-1)[flat_index(R, pz, py, px)]
+
+
+def axis_keep_mask(keep_x: torch.Tensor, keep_y: torch.Tensor,
+                   keep_z: torch.Tensor) -> torch.Tensor:
+    """Per-axis physical keep vectors (R,) bool -> the (B^3, 4, 128) mask
+    of the voxels kept on all three axes, in the blocked layout."""
+    R = keep_x.shape[0]
+    B = R // BLOCK
+    kx, ky, kz = (k.reshape(B, BLOCK) for k in (keep_x, keep_y, keep_z))
+    m = (kz[:, None, None, :, None, None]
+         & ky[None, :, None, None, :, None]
+         & kx[None, None, :, None, None, :])
+    return m.reshape(B ** 3, 4, 128)
+
+
 def blocked_clear_mask(shift: torch.Tensor, S: int, R: int, row=None):
     """(B^3,4,128) bool KEEP mask for the departing bands of a shift, in
     blocked coordinates (logical == physical: wrap 0). row: optional

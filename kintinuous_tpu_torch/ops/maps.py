@@ -37,6 +37,14 @@ def create_nmap(vmap: torch.Tensor) -> torch.Tensor:
     return torch.where(norm > 1e-12, n / norm, torch.nan)
 
 
+def transform_maps(vmap: torch.Tensor, nmap: torch.Tensor, T: torch.Tensor):
+    """Both maps (3,H,W) under the rigid transform T (4,4): R v + t and R n."""
+    R, t = T[:3, :3], T[:3, 3]
+    v = torch.einsum("ij,jhw->ihw", R, vmap) + t[:, None, None]
+    n = torch.einsum("ij,jhw->ihw", R, nmap)
+    return v, n
+
+
 def _avg_pool2(m: torch.Tensor) -> torch.Tensor:
     """2x2 NaN-aware average downsample of (3,H,W)."""
     C, H, W = m.shape

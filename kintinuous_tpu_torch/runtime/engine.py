@@ -6,7 +6,9 @@ of the log the tracker emits the FINAL slice, the worker drains its
 queue, and `save` writes the map (`.pcd`), the trajectory (`.poses`,
 TUM) and, with meshing on, the welded whole-map mesh (`.ply`). Offline
 fast-mode runs take the batched path: an uploader thread decodes the log
-and uploads full batches ahead of the step; the first frame runs alone,
+(the native batched reader, io/klg_native, when its library loads, else
+io/klg.KlgLogReader; `reader` and `codec` say which ran) and uploads full
+batches ahead of the step; the first frame runs alone,
 then batches of cfg.offline_batch_size, then the partial tail frame by
 frame. The dense path (fast_mode off) runs frame by frame, as the JAX
 engine does.
@@ -37,8 +39,10 @@ frame, as the JAX engine batches only on one device. Several processes
 before the build and tracks the whole log; without -od the slice stage
 processes only the slices this process owns (parallel/multihost.
 HostPartition), `save` merges every process's points in process order
-and process 0 writes the `.pcd`; with -od every process processes every
-slice and the pose graph's solve is the distributed one.
+and process 0 writes the `.pcd`. Online deformation (-od) with several
+processes is refused: each process's place-recognition worker would
+start the distributed pose-graph solve when it accepts a loop, at its
+own time and on a graph of its own size, so the collectives mismatch.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import contextlib
 import queue
 import threading
 import time
+import warnings
 from collections import deque
 from typing import Callable, List, Optional
 
@@ -60,6 +65,7 @@ from kintinuous_tpu_torch.backend.slice_proc import SliceProcessor
 from kintinuous_tpu_torch.config import KintinuousConfig
 from kintinuous_tpu_torch.device import resolve_device
 from kintinuous_tpu_torch.geometry import se3
+from kintinuous_tpu_torch.io import klg, klg_native
 from kintinuous_tpu_torch.io.klg import KlgLogReader
 from kintinuous_tpu_torch.io.live import LiveLogReader
 from kintinuous_tpu_torch.io.tum import TrajectoryWriter, load_trajectory, save_trajectory
@@ -107,12 +113,24 @@ class SlamEngine:
 
     def __init__(self, cfg: KintinuousConfig, device=None):
         self.cfg = cfg
+        if cfg.num_processes > 1 and cfg.online_deformation:
+            raise ValueError(
+                "online deformation (-od) runs in one process: with several, each "
+                "process's place-recognition worker starts the distributed pose-graph "
+                "solve on its own schedule, on a graph of its own size, and the group's "
+                "collectives do not match")
         if cfg.num_processes > 1:
             from kintinuous_tpu_torch.parallel.multihost import init_distributed
 
             init_distributed(cfg.coordinator, cfg.num_processes, cfg.process_id)
         self.device = device
         self.sw = Stopwatch(port=cfg.telemetry_port)
+        # what the last run read with: "native" (NativeKlgReader), "python"
+        # (KlgLogReader) or "live"; and its colour codec: "libjpeg" (the
+        # native reader's, when the log carries colour), io/klg.codec_name()
+        # of the first frame with colour, or None before one
+        self.reader: Optional[str] = None
+        self.codec: Optional[str] = None
         # held by the frame loop for each frame (or batch); a reset
         # rebuilds the engine under it, so it is made once, here
         self.frame_lock = threading.RLock()
@@ -148,9 +166,9 @@ class SlamEngine:
         self._last_kf_pose: Optional[np.ndarray] = None
         self.keyframes_dropped = 0
         self._slice_idx = 0
-        # several processes without -od: each processes the slices it owns
+        # several processes: each processes the slices it owns
         self._host_part = None
-        if cfg.num_processes > 1 and not od:
+        if cfg.num_processes > 1:
             from kintinuous_tpu_torch.parallel.multihost import HostPartition
 
             self._host_part = HostPartition(cfg.num_processes, cfg.process_id)
@@ -279,11 +297,14 @@ class SlamEngine:
         else:
             reader_cm = KlgLogReader(cfg.log_file, width=cam.width, height=cam.height,
                                      max_frames=cfg.total_num_frames)
+        self.reader, self.codec = ("live" if live else "python"), None
         with reader_cm as reader:
             for frame in reader:
                 t0 = time.perf_counter()
                 delta = gt.delta(frame.timestamp) if gt is not None else None
                 rgb = frame.rgb
+                if rgb is not None and self.codec is None:
+                    self.codec = klg.codec_name()
                 if cfg.flip_colors and rgb is not None:
                     rgb = rgb[..., ::-1]  # BGR logs (-f)
                 with self.frame_lock:
@@ -310,7 +331,9 @@ class SlamEngine:
         """The offline fast path: an uploader thread decodes the log and
         uploads full batches ahead of the step; the first frame runs
         alone, every later dispatch is one full batch, and the partial
-        tail runs frame by frame."""
+        tail runs frame by frame. The log is decoded by the native
+        batched reader (io/klg_native) when its library loads, else by
+        KlgLogReader, with a warning that says why."""
         cfg, cam = self.cfg, self.cfg.camera
         batch = cfg.offline_batch_size
         self._t_start = time.perf_counter()
@@ -325,24 +348,51 @@ class SlamEngine:
                 except queue.Full:
                     continue
 
+        def decoded():
+            """(depth, rgb or None, ts, frame count) a frame, unflipped."""
+            if klg_native.available():
+                self.reader, self.codec = "native", None
+                with klg_native.NativeKlgReader(cfg.log_file, cam.width, cam.height) as r:
+                    total = r.total_num_frames
+                    if cfg.total_num_frames > 0:
+                        total = min(total, cfg.total_num_frames)
+                    colour = r.has_colour()
+                    if colour[:total].any():
+                        self.codec = "libjpeg"
+                    for start in range(0, total, batch):
+                        n = min(batch, total - start)
+                        d, c, ts = r.read_batch(start, n)
+                        if len(d) < n:  # the library stops at a frame it cannot read
+                            raise OSError(f"{cfg.log_file}: frame {start + len(d)} of "
+                                          f"{total} cannot be read")
+                        for k in range(n):
+                            yield d[k], c[k] if colour[start + k] else None, int(ts[k]), total
+                return
+            warnings.warn("the native .klg reader is unavailable "
+                          f"({klg_native.unavailable_reason()}): reading with "
+                          "io/klg.KlgLogReader", RuntimeWarning)
+            self.reader, self.codec = "python", None
+            with KlgLogReader(cfg.log_file, width=cam.width, height=cam.height,
+                              max_frames=cfg.total_num_frames) as r:
+                for fr in r:
+                    if fr.rgb is not None and self.codec is None:
+                        self.codec = klg.codec_name()
+                    yield fr.depth, fr.rgb, int(fr.timestamp), r.total_num_frames
+
         def uploader():
             try:
-                with KlgLogReader(cfg.log_file, width=cam.width, height=cam.height,
-                                  max_frames=cfg.total_num_frames) as r:
-                    total = r.total_num_frames
-                    buf = []
-                    for fr in r:
-                        rgb = fr.rgb
-                        if cfg.flip_colors and rgb is not None:
-                            rgb = rgb[..., ::-1].copy()
-                        buf.append((fr.depth, rgb, int(fr.timestamp)))
-                        if fr.index == 0:
-                            put(("first", [buf.pop(0)], total, None))
-                        elif len(buf) == batch:
-                            put(("batch", buf, total, self.tracker.upload_batch(buf)))
-                            buf = []
-                    if buf:
-                        put(("tail", buf, total, None))
+                buf = []
+                for i, (depth, rgb, ts, total) in enumerate(decoded()):
+                    if cfg.flip_colors and rgb is not None:
+                        rgb = rgb[..., ::-1].copy()  # BGR logs (-f), on both readers
+                    buf.append((depth, rgb, ts))
+                    if i == 0:
+                        put(("first", [buf.pop(0)], total, None))
+                    elif len(buf) == batch:
+                        put(("batch", buf, total, self.tracker.upload_batch(buf)))
+                        buf = []
+                if buf:
+                    put(("tail", buf, total, None))
                 put(None)
             except Exception as e:  # handed to the consumer, which raises it
                 put(("error", e))

@@ -6,8 +6,9 @@ Spans (tick/tock or `with sw.span(name)`), per-thread heartbeats
 UDP sink: at most every 10 ms one JSON datagram {"sig", "timings"} to
 127.0.0.1:<port>, inspectable with nc and jq.
 
-The engine owns its Stopwatch and hands it to its workers; there is no
-process-wide instance.
+The engine owns its Stopwatch and hands it to its workers. A
+process-wide instance, as in the JAX package, is `Stopwatch.get()`; the
+engine does not use it (the JAX engine does).
 """
 
 from __future__ import annotations
@@ -18,10 +19,13 @@ import socket
 import threading
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 
 class Stopwatch:
+    _instance: Optional["Stopwatch"] = None
+    _lock = threading.Lock()
+
     def __init__(self, port: int = 45454, send_interval_s: float = 0.01):
         self.port = port
         self.send_interval_s = send_interval_s
@@ -34,6 +38,14 @@ class Stopwatch:
         self._last_send = 0.0
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
         self.enabled = True
+
+    @classmethod
+    def get(cls) -> "Stopwatch":
+        """The process-wide instance, made at the first call."""
+        with cls._lock:
+            if cls._instance is None:
+                cls._instance = Stopwatch()
+            return cls._instance
 
     def tick(self, name: str):
         self._starts[f"{threading.get_ident()}:{name}"] = time.perf_counter()

@@ -1,6 +1,6 @@
 """Coarse-to-fine ICP odometry and ground-truth replay (port of
 kintinuous_tpu/tracking/odometry.py: build_map_pyramid,
-pyramid_from_maps, icp_odometry, GroundTruthOdometry).
+pyramid_from_maps, icp_odometry, GroundTruthOdometry, icp_covariance).
 
 Returns T_curr_to_prev: the transform taking current-frame camera
 points into the previous camera frame; the tracker composes
@@ -18,7 +18,7 @@ import torch
 from kintinuous_tpu_torch.config import CameraIntrinsics
 from kintinuous_tpu_torch.ops import maps as map_ops
 from kintinuous_tpu_torch.ops import preprocess as pp
-from kintinuous_tpu_torch.ops.reduce import icp_solve_level, pack_maps
+from kintinuous_tpu_torch.ops.reduce import icp_solve_level, icp_step, pack_maps
 
 MapPyramid = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # fine -> coarse
 
@@ -109,3 +109,16 @@ class GroundTruthOdometry:
 
     def has_pose(self, timestamp_us: int) -> bool:
         return self._lookup(timestamp_us) is not None
+
+
+def icp_covariance(cam: CameraIntrinsics, T: torch.Tensor, vmap_curr: torch.Tensor,
+                   nmap_curr: torch.Tensor, vmap_prev: torch.Tensor,
+                   nmap_prev: torch.Tensor, dist_thresh: float = 0.10,
+                   angle_thresh_deg: float = 20.0) -> torch.Tensor:
+    """6x6 odometry covariance, the inverse of the point-to-plane GN
+    system at the converged pose T (twist order [w, v]), damped by 1e-6
+    so that a degenerate scene gives a large but finite covariance."""
+    sys_ = icp_step(cam, T, vmap_curr, nmap_curr, vmap_prev, nmap_prev, dist_thresh,
+                    math.sin(math.radians(angle_thresh_deg)))
+    return torch.linalg.inv(sys_.A + 1e-6 * torch.eye(6, dtype=sys_.A.dtype,
+                                                       device=sys_.A.device))

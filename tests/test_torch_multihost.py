@@ -1,7 +1,8 @@
 """Several processes (parallel/multihost.py): two gloo processes, each
 this file run as a worker, against one process. The distributed pose
-graph against PoseGraph (and the JAX package's), and the CLI with
---num-processes 2 against the same flags in one process.
+graph against PoseGraph (and the JAX package's), the CLI with
+--num-processes 2 against the same flags in one process, and -od with
+two processes refused.
 
 Worker use (the chip smoke test runs it on the card too):
 
@@ -9,7 +10,11 @@ Worker use (the chip smoke test runs it on the card too):
 
 joins the group at 127.0.0.1:PORT, optimises build_graph's 40-node
 graph with a DistributedPoseGraph on DEVICE, checks the host partition
-and allgather_points, and (process 0) writes OUTDIR/graph.npz.
+and allgather_points, and (process 0) writes OUTDIR/graph.npz;
+
+    python tests/test_torch_multihost.py od PID NPROC PORT OUTDIR
+
+runs the CLI with -od on OUTDIR's lap as process PID of NPROC.
 """
 
 import os
@@ -97,6 +102,50 @@ def graph_worker(pid: int, nproc: int, port: int, outdir: str, device: str) -> N
 
 
 # ------------------------------------------------------------------ tests
+def test_od_with_two_processes_fails_at_once_with_a_clear_error(tmp_path):
+    """The CLI with -od and --num-processes 2 on a short lap with colour
+    (tests/test_torch_engine_od.py's) is refused in each process before
+    it joins a group. Run, it failed in gloo: each process's
+    place-recognition worker starts the distributed solve on its own
+    schedule, and the two solves' all_reduce sizes differed ("Received
+    data size doesn't match expected size", the other process reset);
+    a solve that one process never starts would wait out the group."""
+    from kintinuous_tpu_torch.config import CameraIntrinsics
+    from kintinuous_tpu_torch.io.synth import generate_klg, lap_scene, lap_trajectory
+    from kintinuous_tpu_torch.io.tum import save_trajectory
+    from tests.test_torch_engine_od import drifted
+
+    poses = lap_trajectory(length=2.0, depth=1.6, step=0.1, turn_frames=10, warmup_frames=4,
+                           revisit_frac=0.25)
+    generate_klg(str(tmp_path / "lap.klg"), CameraIntrinsics(**OD_CAM), poses,
+                 scene=lap_scene(length=2.0, depth=1.6), depth_noise_mm=3.0, color=True)
+    save_trajectory(str(tmp_path / "drift.txt"), [i / 30.0 for i in range(len(poses))],
+                    drifted(poses))
+    (tmp_path / "calib.txt").write_text("90 90 80 64 160 128\n")
+    port = free_port()
+    with pytest.raises(AssertionError) as failed:
+        run_workers([[__file__, "od", str(pid), "2", str(port), str(tmp_path)]
+                     for pid in range(2)], timeout=110)
+    assert "online deformation (-od) runs in one process" in str(failed.value)
+    assert not (tmp_path / "od2_0.poses").exists()
+
+
+def test_the_engine_refuses_od_with_several_processes_before_joining_a_group():
+    """In process: SlamEngine with -od and num_processes 2 raises at
+    construction, before it joins a group (the coordinator named here
+    is never contacted)."""
+    import torch.distributed as dist
+
+    from kintinuous_tpu_torch.config import tiny_test_config
+    from kintinuous_tpu_torch.runtime.engine import SlamEngine
+
+    cfg = tiny_test_config(online_deformation=True, num_processes=2, process_id=1,
+                           coordinator=f"127.0.0.1:{free_port()}")
+    with pytest.raises(ValueError, match=r"online deformation \(-od\) runs in one process"):
+        SlamEngine(cfg, device="cpu")
+    assert not dist.is_initialized()
+
+
 def test_distributed_pose_graph_matches_one_process(tmp_path):
     """Two processes, the factors split between them and every reduction
     summed over the group: the optimised poses within 1e-5 of PoseGraph's
@@ -175,7 +224,34 @@ def test_cli_two_processes_match_one(tmp_path, mode):
                                atol=1e-4)
 
 
+# the -od lap of tests/test_torch_engine_od.py, and the configuration
+# fields its test sets that the CLI's flags do not reach
+OD_CAM = dict(fx=90.0, fy=90.0, cx=80.0, cy=64.0, width=160, height=128)
+OD_SCALE = dict(pyramid_levels=4, icp_iterations=(0, 10, 5, 0), bilateral_radius=2,
+                extraction_capacity=300_000, band_cap=2048, pallas=False,
+                loop_min_matches=20, place_rec_motion_thresh=0.3)
+
+
+def od_worker(pid: int, nproc: int, port: int, outdir: str) -> None:
+    """The CLI with -od on OUTDIR's lap, as process PID of NPROC: the
+    lap's colour through the port's ORB, the poses replayed through -p."""
+    from kintinuous_tpu_torch import cli
+
+    argv = ["-l", os.path.join(outdir, "lap.klg"), "-p", os.path.join(outdir, "drift.txt"),
+            "--fast", "-dc", "-od", "-lt", "0", "--device", "cpu",
+            "-c", os.path.join(outdir, "calib.txt"), "-s", "4", "--resolution", "64",
+            "-t", "8", "-d", "-o", os.path.join(outdir, f"od{nproc}_{pid}"),
+            "--num-processes", str(nproc), "--process-id", str(pid),
+            "--coordinator", f"127.0.0.1:{port}"]
+    config = cli._config
+    cli._config = lambda a: config(a).replace(**OD_SCALE)
+    assert cli.main(argv) == 0
+
+
 if __name__ == "__main__":
-    kind, pid, nproc, port, outdir, device = sys.argv[1:7]
-    assert kind == "graph", kind
-    graph_worker(int(pid), int(nproc), int(port), outdir, device)
+    kind, pid, nproc, port, outdir = sys.argv[1:6]
+    if kind == "graph":
+        graph_worker(int(pid), int(nproc), int(port), outdir, sys.argv[6])
+    else:
+        assert kind == "od", kind
+        od_worker(int(pid), int(nproc), int(port), outdir)

@@ -67,7 +67,7 @@ RUNTIME_MODULES = [
     "eval/loop_gate.py", "ops/raycast_fast.py", "ops/image.py", "io/live.py",
     "viz/png.py", "viz/headless.py", "viz/server.py", "parallel/mesh.py",
     "parallel/sharded.py", "parallel/fast_sharded.py", "parallel/tracker.py",
-    "parallel/multihost.py",
+    "parallel/multihost.py", "io/klg_native.py",
 ]
 
 

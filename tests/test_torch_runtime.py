@@ -189,6 +189,21 @@ def slice_of(seed, n=4000):
                 dimension="XPlus", timestamp_us=5, frame_index=1)
 
 
+@pytest.mark.parametrize("n", [1, 2, 25])
+def test_estimate_normals_at_any_point_count(n):
+    """PCA normals of a map of 1 point (k = 1, where the tree's query
+    drops an axis), 2 and 25 points: unit length, towards the viewpoint;
+    from 2 points on equal to JAX's (which raises at 1)."""
+    pts = np.random.default_rng(n).normal(size=(n, 3)) + [0.0, 0.0, 3.0]
+    got = psp.estimate_normals(pts, k=20, viewpoint=np.zeros(3))
+    assert got.shape == (n, 3) and got.dtype == np.float32
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-6)
+    assert (np.sum(got * -pts, axis=1) >= 0).all()
+    if n > 1:
+        np.testing.assert_array_equal(got, jsp.estimate_normals(pts, k=20,
+                                                                viewpoint=np.zeros(3)))
+
+
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
 def test_slice_processor_matches_jax(native, monkeypatch):
     """Same slice through both packages' SliceProcessor: the same points,
