@@ -129,6 +129,17 @@ prediction, 16-voxel shifts, ICP odometry):
      readers, ms a frame, depth bit-equal; (d) the batched CLI on the
      fixture (`--fast -fod -t 16`, 512^3 over 6 m): 4 poses, the reader
      and codec it used, fps;
+ 16. the captured step (Tracker's fast step as CUDA graphs) against the
+     eager make_step_fast on the same frames: phase 2's orbit for 16
+     frames (eager, captured, captured, eager) and phase 3's walk
+     (eager, captured, eager); the eager runs' difference to each other
+     is the eager step's spread, and the captured runs may differ from
+     them by no more (bit-equal where it is 0) in poses, shifts,
+     slices, tsdf, cw, origin, the mirror and the prediction; each
+     run's fps and peak device memory, the captures' ms, the frames'
+     step modes, for 4 more orbit frames of each the host ms a frame
+     and, profiled, the host's launches and the device's busy ms a
+     frame, and each graph's launch on the host and run on the device;
 
 and checks that each run of phases 2-4, 6, 7 and 11 launched K1-K4,
 phase 5 the rebuild, phase 8 the four probes, phase 9 K1, K2, K4 and K5
@@ -137,8 +148,13 @@ a frame and K3-K5 never, phase 13 K1-K4 once a frame and K5 never,
 phase 14a K1 and K2 only, phase 14b K1 and K2 4 times a frame (once a
 slab; 5 in the replay, which runs the single card too) and K3-K5 never,
 phase 14c none, and phase 15 K1-K4, with the counts set to 0
-before each path. A {"phase_seconds": ...} line gives each phase's
-host seconds.
+before each path; phases 2, 3, 6 and 16 K1-K4 exactly once a frame,
+replays included. On every path each tracker's frames are warm-up,
+shift, captured or replayed frames of its captured step (at most 3
+warm-up frames, a shift frame exactly where the volume shifted, never
+the eager one-piece step), and those of a tracker without one (the
+dense step) all eager; a {"phase": "step_modes"} line sums them by
+path. A {"phase_seconds": ...} line gives each phase's host seconds.
 `--trace FRAMES`
 then profiles that many further orbit frames (where a frame's time
 goes: host ms untraced and traced, device busy ms and idle share, host
@@ -197,6 +213,8 @@ DENSE_PATHS = ("dense_check", "dense_orbit", "dense_profile", "dense_walk", "den
                "dense_resume")
 # the step's torch.profiler ranges (tracking/tracker.py)
 STAGES = ("kt.preprocess", "kt.odometry", "kt.shift", "kt.integrate", "kt.raycast")
+# the captured pieces' ranges (tracking/graphs.py): a capture, a replay
+GRAPH_RANGES = ("kt.capture", "kt.replay")
 
 
 ORBIT_RGBD_FRAMES = 96  # phase 6, config B
@@ -208,10 +226,19 @@ LAP_NOISE_MM = 6.0
 ORB_CHECK_FRAME = 100  # the lap frame of phase 11's ORB check
 GATHER_ORBIT_FRAMES = 24  # phase 12b
 GATHER_TRACE_FRAMES = 2  # phase 12b's profiled frames
+# phase 12b's frames before its timed ones: the two warm-up frames and the
+# frame that captures the step's graphs
+GATHER_WARM_FRAMES = 3
 LIVE_FRAMES = 60  # phase 13
 LIVE_FPS = 30.0  # the sensor's rate
 VIEWER_POLL_S = 0.5  # the viewer page's poll period
 SLABS = 4  # phase 14: z-slabs of the sharded steps, all on the one card
+GRAPH_ORBIT_FRAMES = 16  # phase 16: the orbit, eager and captured, E C C E
+GRAPH_TRACE_FRAMES = 4  # phase 16: profiled frames of each
+# the host's CUDA API calls that put work on a stream, in a profiler trace
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
 SHARDED_ORBIT_FRAMES = 12  # phase 14b
 ORBIT_PLACED = 3  # phases 14b and 14c: orbit frames placed by their ground truth
 DENSE_SHARDED_FRAMES = 12  # phase 14c
@@ -222,6 +249,30 @@ VIEWER_ENDPOINTS = ("/", "/state.json", "/cloud.bin", "/mesh.bin", "/pane/rgb.pn
 FAILED: list = []
 # host seconds of each phase (and each path of phases 2-14), in order
 PHASE_SECONDS: dict = {}
+# each Tracker's (has a captured step, step modes, shifted frames) at its last flush,
+# by the order it was made in; emptied before each path
+STEP_RECORDS: dict = {}
+
+
+def record_step_modes() -> None:
+    """Make every Tracker note its frames' step modes and shifts in
+    STEP_RECORDS when it flushes (the paths' engines flush their trackers
+    at the end of a run)."""
+    import itertools
+
+    from kintinuous_tpu_torch.tracking.tracker import Tracker
+
+    flush, ids = Tracker.flush, itertools.count()
+
+    def noting(self):
+        flush(self)
+        if not hasattr(self, "_smoke_id"):
+            self._smoke_id = next(ids)
+        STEP_RECORDS[self._smoke_id] = (
+            self._captured is not None, list(self.stats["step_mode"]),
+            [bool(np.any(s)) for s in self.shift_log])
+
+    Tracker.flush = noting
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1168,7 +1219,8 @@ def device_work(prof) -> tuple:
     kernels = defaultdict(lambda: [0, 0.0])
     spans = []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in STAGES:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.name not in STAGES + GRAPH_RANGES:
             kernels[e.name][0] += 1
             kernels[e.name][1] += e.time_range.elapsed_us()
             spans.append((e.time_range.start, e.time_range.end))
@@ -1213,7 +1265,7 @@ def profile_orbit(cfg, dev, frames, card: str, n: int, phase: str = "profile",
     kernels, busy = device_work(prof)
     stage_us = defaultdict(float)
     for e in prof.events():
-        if e.name in STAGES and e.device_type == torch.autograd.DeviceType.CPU:
+        if e.name in STAGES + GRAPH_RANGES and e.device_type == torch.autograd.DeviceType.CPU:
             stage_us[e.name] += e.time_range.elapsed_us()
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
     res = dict(
@@ -1227,7 +1279,11 @@ def profile_orbit(cfg, dev, frames, card: str, n: int, phase: str = "profile",
         device_idle_share=1.0 - busy / plain_ms if kernels else None,
         device_idle_share_traced=1.0 - busy / wall_ms if kernels else None,
         kernel_launches_per_frame=sum(c for c, _ in kernels.values()) / n,
-        stage_host_ms_per_frame={k: stage_us[k] / 1e3 / n for k in STAGES},
+        # the host's calls that put work on a stream (a CUDA graph's launch
+        # is one, however many kernels it holds)
+        host_launches_per_frame=sum(host_launches(prof).values()) / n,
+        host_calls_per_frame={k: c / n for k, c in host_launches(prof).items()},
+        stage_host_ms_per_frame={k: stage_us[k] / 1e3 / n for k in STAGES + GRAPH_RANGES},
         top_kernels=[{"name": k[:80], "per_frame": c / n, "ms_per_frame": us / 1e3 / n}
                      for k, (c, us) in top],
     )
@@ -2439,6 +2495,233 @@ def reader(dev, card: str, log_dir: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 16
+
+def host_launches(prof) -> dict:
+    """{API call: count} of the host's calls that put work on a stream
+    (HOST_LAUNCH_CALLS: kernels, graphs, copies, fills) in a
+    torch.profiler run."""
+    import torch
+
+    n = defaultdict(int)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(
+                HOST_LAUNCH_CALLS):
+            n[e.name] += 1
+    return dict(n)
+
+
+def eager_tracker(cfg, dev):
+    """A Tracker whose fast step is the eager make_step_fast, on the state
+    its captured step would have used: phase 16's yardstick (Tracker has
+    no switch for it)."""
+    from kintinuous_tpu_torch.tracking.tracker import Tracker, make_step_fast
+
+    tr = Tracker(cfg, device=dev)
+    tr._state, tr._captured = tr.state, None
+    tr._step_odom, tr._step_ext = make_step_fast(cfg, True), make_step_fast(cfg, False)
+    return tr
+
+
+def _feed(tr, items, deltas, i0: int = 0) -> None:
+    for i, ((d, c), delta) in enumerate(zip(items, deltas), start=i0):
+        tr.process_frame(d, c, i * 33333, ext_delta=delta)
+    tr.flush()
+
+
+def run_diff(a, b) -> dict:
+    """How far two trackers' runs differ: per field the number of 32-bit
+    words (16 for the bf16 mirror) that differ (poses, shifts, slices,
+    tsdf, cw, origin, mirror, pose and prediction), and the largest pose
+    difference in metres. All 0 when the runs are bit-equal."""
+    import torch
+
+    def words(x, y):
+        if x is None or y is None:
+            return 0 if x is None and y is None else 1
+        if x.shape != y.shape:
+            return max(x.numel(), y.numel())
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        elif x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        return int((x != y).sum())
+
+    def host(arrs):
+        return torch.from_numpy(np.ascontiguousarray(np.concatenate(
+            [np.asarray(v, np.float32).reshape(-1) for v in arrs] or [np.zeros(0, np.float32)])))
+
+    sa, sb = a.state, b.state
+    pa, pb = np.array(a.poses, np.float64), np.array(b.poses, np.float64)
+    return dict(
+        poses=words(host(a.poses), host(b.poses)),
+        pose_max_m=float(np.abs(pa - pb).max()) if pa.shape == pb.shape else float("inf"),
+        shifts=int((np.array(a.shift_log) != np.array(b.shift_log)).sum()),
+        slices=words(host([x for sl in a.slices for x in (sl.points, sl.colors, sl.weights)]),
+                     host([x for sl in b.slices for x in (sl.points, sl.colors, sl.weights)])),
+        tsdf=words(sa.vol.tsdf, sb.vol.tsdf), cw=words(sa.vol.cw, sb.vol.cw),
+        origin=words(sa.vol.origin, sb.vol.origin), mirror=words(sa.logical, sb.logical),
+        pose=words(sa.pose, sb.pose), pred_vmap=words(sa.pred_vmap, sb.pred_vmap),
+        pred_nmap=words(sa.pred_nmap, sb.pred_nmap))
+
+
+def captured_vs_eager(cfg, dev, frames, walk_poses, walk_frames, card: str) -> dict:
+    """Phase 16: the captured step (Tracker, CUDA graphs) against the
+    eager make_step_fast on the same frames, at config A: phase 2's orbit
+    (GRAPH_ORBIT_FRAMES frames, run eager, captured, captured, eager) and
+    phase 3's walk (eager, captured, eager). The eager runs' difference to
+    each other is the eager step's own spread; the captured runs must
+    differ from the eager ones by no more (bit-equal where the spread is
+    0) in poses, shifts, slices, tsdf, cw, origin, the mirror and the
+    prediction. Reports each run's fps and peak device memory above its
+    start, the captures' ms, the step modes, and for GRAPH_TRACE_FRAMES
+    more orbit frames of each the host ms a frame and, under the
+    profiler, the host's launches and the device's busy ms a frame."""
+    import torch
+
+    orbit = [frames[pingpong(i, len(frames))] for i in range(GRAPH_ORBIT_FRAMES)]
+    tail = [frames[pingpong(i, len(frames))]
+            for i in range(GRAPH_ORBIT_FRAMES, GRAPH_ORBIT_FRAMES + 2 * GRAPH_TRACE_FRAMES)]
+    walk_deltas = [gt_delta(walk_poses[i - 1] if i else None, T)
+                   for i, T in enumerate(walk_poses)]
+
+    def timed(kind, items, deltas):
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        from kintinuous_tpu_torch.tracking.tracker import Tracker
+
+        tr = eager_tracker(cfg, dev) if kind == "eager" else Tracker(cfg, device=dev)
+        t0 = time.perf_counter()
+        _feed(tr, items, deltas)
+        torch.cuda.synchronize(dev)
+        sec = time.perf_counter() - t0
+        return tr, dict(fps=len(items) / sec, seconds=sec,
+                        peak_gib=(torch.cuda.max_memory_allocated(dev) - start) / 2 ** 30)
+
+    res = dict(phase="captured_vs_eager", card=card, orbit_frames=GRAPH_ORBIT_FRAMES,
+               walk_frames=len(walk_poses))
+    nones = [None] * GRAPH_ORBIT_FRAMES
+    runs = {}
+    for name in ("eager_1", "captured_1", "captured_2", "eager_2"):
+        runs[name], res[f"orbit_{name}"] = timed(name.split("_")[0], orbit, nones)
+    spread = run_diff(runs["eager_1"], runs["eager_2"])
+    res["orbit_eager_spread"] = spread
+    res["orbit_captured_vs_eager"] = diff = run_diff(runs["captured_1"], runs["eager_1"])
+    res["orbit_captured_vs_captured"] = run_diff(runs["captured_1"], runs["captured_2"])
+    cap = runs["captured_1"]
+    res["orbit_step_modes"] = cap.step_counts()
+    res["capture_ms"] = list(cap._captured.pieces.capture_ms)
+    res["captured_pieces"] = list(cap._captured.pieces.captured)
+    # the steady state: host ms a frame, then the host's launches and the
+    # device's busy ms a frame under the profiler
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    n = GRAPH_TRACE_FRAMES
+    for name in ("captured_1", "eager_1"):
+        tr = runs[name]
+        t0 = time.perf_counter()
+        _feed(tr, tail[:n], [None] * n, GRAPH_ORBIT_FRAMES)
+        torch.cuda.synchronize(dev)
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _feed(tr, tail[n:], [None] * n, GRAPH_ORBIT_FRAMES + n)
+            torch.cuda.synchronize(dev)
+            traced_ms = (time.perf_counter() - t0) * 1e3 / n
+        kernels, busy = device_work(prof)
+        calls = host_launches(prof)
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+        ranges = defaultdict(float)  # traced host ms in the graphs' and stages' ranges
+        for e in prof.events():
+            if e.name in STAGES + GRAPH_RANGES and \
+                    e.device_type == torch.autograd.DeviceType.CPU:
+                ranges[e.name] += e.time_range.elapsed_us() / 1e3 / n
+        res[f"steady_{name.split('_')[0]}"] = dict(
+            host_ms_per_frame=host_ms, traced_host_ms_per_frame=traced_ms,
+            host_launches_per_frame=sum(calls.values()) / n,
+            host_calls_per_frame={k: v / n for k, v in calls.items()},
+            device_kernels_per_frame=sum(c for c, _ in kernels.values()) / n,
+            device_busy_ms_per_frame=busy / n,
+            device_idle_share=1.0 - busy / (host_ms * n),
+            traced_range_host_ms_per_frame=dict(ranges),
+            top_kernels=[{"name": k[:80], "per_frame": c / n, "ms_per_frame": us / 1e3 / n}
+                         for k, (c, us) in top])
+    # each graph alone, on the captured tracker, which is not read again:
+    # the host's ms in its launch call and the device's ms from one event
+    # to the next around it, medians of 5 (a replay of the back fuses the
+    # frame once more)
+    res["graph_replay_ms"] = replay_times(cap, dev)
+    del runs, cap, tr
+    walk = {}
+    for name in ("eager_1", "captured_1", "eager_2"):
+        walk[name], res[f"walk_{name}"] = timed(name.split("_")[0], walk_frames, walk_deltas)
+    walk_spread = run_diff(walk["eager_1"], walk["eager_2"])
+    res["walk_eager_spread"] = walk_spread
+    res["walk_captured_vs_eager"] = walk_diff = run_diff(walk["captured_1"], walk["eager_1"])
+    res["walk_step_modes"] = walk["captured_1"].step_counts()
+    res["walk_shift_frames"] = sum(1 for s in walk["captured_1"].shift_log if np.any(s))
+    print(json.dumps(res), flush=True)
+    for got, allowed, path in ((diff, spread, "orbit"), (walk_diff, walk_spread, "walk")):
+        over = {k: (v, allowed[k]) for k, v in got.items() if v > allowed[k]}
+        assert not over, \
+            f"the captured {path} differs from the eager step beyond its spread: {over}"
+    modes = res["orbit_step_modes"]
+    assert modes["eager"] == 0 and modes["shift"] == 0 and modes["warmup"] <= 2 \
+        and modes["replayed"] >= GRAPH_ORBIT_FRAMES - 3, modes
+    assert res["walk_step_modes"]["shift"] == res["walk_shift_frames"] > 0, res["walk_step_modes"]
+    return res
+
+
+def replay_times(tr, dev, reps: int = 5) -> dict:
+    """{piece: {"host_ms", "device_ms"}} of each captured graph of a
+    tracker: the host's time in `CUDAGraph.replay` (the launch) and the
+    device's between CUDA events around it, on an idle card."""
+    import torch
+
+    out = {}
+    for name, cap in tr._captured.pieces._captures.items():
+        host, device = [], []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(dev)
+            a.record()
+            t0 = time.perf_counter()
+            cap.graph.replay()
+            host.append((time.perf_counter() - t0) * 1e3)
+            b.record()
+            b.synchronize()
+            device.append(a.elapsed_time(b))
+        out[name] = dict(host_ms=statistics.median(host), device_ms=statistics.median(device))
+    return out
+
+
+def step_modes_check(records: dict, path: str) -> dict:
+    """Phase 16's bar on every path: each fast tracker's frames are
+    warm-up, shift, captured or replayed, and eager (the one-piece step)
+    never; a frame is a shift frame exactly where the volume shifted; at
+    most 3 warm-up frames a tracker (one for each piece: the external
+    delta's front, the back, the odometry's front), and a tracker of
+    more than 4 frames replayed. Trackers without a captured step (the
+    dense step, phase 16's eager yardstick) are eager on every frame.
+    Returns the path's summed counts."""
+    from kintinuous_tpu_torch.tracking.tracker import STEP_MODES
+
+    total = defaultdict(int)
+    for captured, modes, shifted in records.values():
+        names = [STEP_MODES[int(m)] for m in modes]
+        for m in names:
+            total[m] += 1
+        if not captured:
+            assert set(names) <= {"eager"}, f"{path}: an eager tracker ran {set(names)}"
+            continue
+        assert len(names) == len(shifted), f"{path}: {len(names)} modes, {len(shifted)} shifts"
+        assert all((m == "shift") == s for m, s in zip(names, shifted)), \
+            f"{path}: shift frames {shifted} against modes {names}"
+        assert "eager" not in names and names.count("warmup") <= 3, f"{path}: {names}"
+        assert len(names) <= 4 or "replayed" in names, f"{path}: nothing replayed: {names}"
+    return dict(total)
+
+
 def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     """All phases on `dev`; returns the kernel rows with the launch
     counts of the paths phases 2-13 drive (each engine run is a path)."""
@@ -2455,6 +2738,7 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
                 "tile_raycast": tile_raycast, "probe_rows": P.run_rows,
                 "probe_dma": P.run_dma, "probe_full": P.run_full,
                 "probe_dyn": P.run_dyn}
+    record_step_modes()
     log_dir = tempfile.TemporaryDirectory()
     d = log_dir.name
     try:
@@ -2489,14 +2773,17 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
 
     # each path runs with the counts set to 0 just before it, read just after
     by_path = {}
+    modes_by_path = {}
 
     def counted(path, fn, *args):
         for w in wrappers.values():
             w.launches = 0
+        STEP_RECORDS.clear()
         t0 = time.perf_counter()
         out = fn(*args)
         PHASE_SECONDS[path] = time.perf_counter() - t0
         by_path[path] = {name: w.launches for name, w in wrappers.items()}
+        modes_by_path[path] = step_modes_check(STEP_RECORDS, path)
         return out
 
     counted("orbit", track_orbit, cfg, dev, frames, poses, card)
@@ -2542,7 +2829,7 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
     counted("gather_check", gather_card_vs_cpu, cfg, dev, frames, poses, card)
     counted("gather_orbit", gather_orbit, cfg, dev, frames, poses, card)
     counted("gather_profile", profile_orbit, gather, dev, frames, card, GATHER_TRACE_FRAMES,
-            "gather_profile", 2)
+            "gather_profile", GATHER_WARM_FRAMES)
     # live capture from the sensor server, with the web viewer
     per_frame_ms = [engine_res[p]["span_mean_ms"]["processFrame"]
                     for p, batched in ENGINE_RUNS if not batched]
@@ -2571,6 +2858,11 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
     counted("two_processes", two_processes, cfg, dev, card, d)
     # phase 15: the .klg readers and the JPEG codec
     counted("reader", reader, dev, card, d)
+    # phase 16: the captured step against the eager one
+    counted("captured_vs_eager", captured_vs_eager, cfg, dev, frames, walk_poses,
+            walk_frames, card)
+    print(json.dumps({"phase": "step_modes", "card": card, "by_path": modes_by_path}),
+          flush=True)
     for path in DENSE_PATHS + ("dense_sharded",):
         launched = {k: n for k, n in by_path[path].items() if n}
         assert not launched, f"the {path} path launched {launched}"
@@ -2579,6 +2871,17 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
         # K1-K4 run on every frame
         for name in ("band_fusion", "free_carve", "mirror_refresh", "tile_raycast"):
             assert by_path[path][name] > 0, f"{name} was not launched on the {path} path"
+    # through the captured step's replays, a kernel's count is still one a
+    # frame: the tracked paths, and phase 16's seven runs with its 2 x 2
+    # profiled tails
+    graph_frames = (4 * GRAPH_ORBIT_FRAMES + 4 * GRAPH_TRACE_FRAMES + 3 * WALK_FRAMES)
+    for path, n_frames in (("orbit", ORBIT_FRAMES), ("walk", WALK_FRAMES),
+                           ("orbit_rgbd", ORBIT_RGBD_FRAMES),
+                           ("captured_vs_eager", graph_frames)):
+        want = {"band_fusion": n_frames, "free_carve": n_frames,
+                "mirror_refresh": n_frames, "tile_raycast": n_frames, "build_mirror": 0}
+        got = {k: by_path[path][k] for k in want}
+        assert got == want, f"the {path} path launched {got}, want {want}"
     assert by_path["resume"]["build_mirror"] > 0, "restore did not launch the rebuild"
     for path, n_frames in (("odd_orbit", ODD_ORBIT_FRAMES), ("odd_walk", WALK_FRAMES)):
         # one launch a frame of K1, K2, K4 and the rebuild (K5), none of K3
@@ -2590,7 +2893,7 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
         assert by_path["probe_tool"][name] > 0, f"the probe tool did not launch {name}"
     # pallas=False: K1 and K2 once a frame, K3, K4 and K5 never
     for path, n_frames in (("gather_check", 3), ("gather_orbit", GATHER_ORBIT_FRAMES),
-                           ("gather_profile", 2 + 2 * GATHER_TRACE_FRAMES)):
+                           ("gather_profile", GATHER_WARM_FRAMES + 2 * GATHER_TRACE_FRAMES)):
         want = {"band_fusion": n_frames, "free_carve": n_frames, "mirror_refresh": 0,
                 "tile_raycast": 0, "build_mirror": 0}
         got = {k: by_path[path][k] for k in want}

@@ -116,9 +116,9 @@ def make_T(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device
-    ).expand(batch + (1, 4))
+    # the last row of the identity, made on the device: no copy from the
+    # host, which a CUDA graph's capture does not allow
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

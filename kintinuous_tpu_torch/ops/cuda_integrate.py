@@ -153,7 +153,9 @@ def dirty_pairs(lists, B: int, dirty_all: bool):
     for ids, n in ((lists.band_ids, lists.n_band), (lists.free_ids, lists.n_free)):
         k = torch.arange(ids.shape[0], device=dev)
         p = torch.where(k < n, ids // (2 * B), n_pairs)
-        bm[p.long()] = True
+        # index_fill_, not `bm[p] = True`: that copies the True from the
+        # host, which a CUDA graph's capture refuses
+        bm.index_fill_(0, p.long(), True)
     bm = bm[:n_pairs]
     dest = torch.where(bm, torch.cumsum(bm.to(torch.int32), 0) - 1, n_pairs)
     pairs = torch.zeros(n_pairs + 1, dtype=torch.int32, device=dev)

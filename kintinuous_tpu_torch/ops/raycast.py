@@ -78,7 +78,7 @@ def raycast(vol: VolumeState, cam: CameraIntrinsics, T_cam_to_local: torch.Tenso
     t_start = torch.clamp(t_near + 1e-5, min=min_range)
     t_stop = torch.clamp(t_far - 1e-5, max=max_range)
     flat = vol.tsdf.reshape(-1)
-    vsz = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
+    vsz = torch.full((), voxel_size, dtype=torch.float32, device=dev)
 
     o3 = o[:, None, None]
 
@@ -117,7 +117,7 @@ def raycast(vol: VolumeState, cam: CameraIntrinsics, T_cam_to_local: torch.Tenso
     # nearest voxel's colour and weight at the hit (visual only)
     ix, iy, iz = (torch.round(pv).to(torch.int32) + vol.wrap[:, None, None]) % R
     wgt, cr, cg, cb = unpack_cw(vol.cw.reshape(-1)[(iz * R + iy) * R + ix])
-    nan = torch.tensor(math.nan, dtype=torch.float32, device=dev)
+    nan = torch.full((), math.nan, dtype=torch.float32, device=dev)
     return RaycastResult(
         vmap=torch.where(ok[None], pos_hit, nan),
         nmap=torch.where(ok[None], normal, nan),

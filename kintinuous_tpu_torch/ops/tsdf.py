@@ -83,7 +83,7 @@ def scale_depth(cam: CameraIntrinsics, depth_m: torch.Tensor) -> torch.Tensor:
 def div_f32(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d as a division on every device (d as a 0-dim f32 tensor on
     x's device; see the module docstring)."""
-    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+    return x / torch.full((), d, dtype=torch.float32, device=x.device)
 
 
 def make_volume(resolution: int, device=None) -> VolumeState:
@@ -124,8 +124,8 @@ def integrate(vol: VolumeState, cam: CameraIntrinsics, depth_m: torch.Tensor,
     flat_ray = scale_depth(cam, depth_m).reshape(-1)
     rgb_u32 = pack_cw(torch.zeros(rgb.shape[:2], device=dev), rgb[..., 0],
                       rgb[..., 1], rgb[..., 2]).reshape(-1)
-    trunc_t = torch.tensor(trunc_dist, dtype=torch.float32, device=dev)
-    q_scale = torch.tensor(127.5, dtype=torch.float32, device=dev)
+    trunc_t = torch.full((), trunc_dist, dtype=torch.float32, device=dev)
+    q_scale = torch.full((), 127.5, dtype=torch.float32, device=dev)
 
     # inv_ex: no host check of the result (jnp.linalg.inv makes none)
     Tinv = torch.linalg.inv_ex(T_cam_to_local)[0]

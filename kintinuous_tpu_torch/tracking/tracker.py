@@ -30,17 +30,31 @@ The shift decision is the fast step's only host synchronisation:
 `jax.lax.cond` on the shift becomes a Python `if` on one host read of
 the three shift counts, after odometry; a static-mode step reads
 nothing. The dense step reads the shift the same way, and its raycast
-reads every 32 march steps whether a ray is still marching. The stages run inside torch.profiler ranges (kt.preprocess,
-kt.odometry, kt.shift, kt.integrate, kt.raycast) that a trace can sum.
-Outputs are consumed one frame late, so downloading poses and slices
-overlaps the next device work.
+reads every 32 march steps whether a ray is still marching. The stages
+run inside torch.profiler ranges (kt.preprocess, kt.odometry,
+kt.shift, kt.integrate, kt.raycast) that a trace can sum.
 
-The JAX package's batched step (make_batched_step_fast) scans a batch
-in one program and reads its outputs one batch late, with the batch's
-slices in a fixed-size device pool. Eager PyTorch launches every
-frame's work either way, and the shift read already waits for the
-device on every frame, so here a batch is the per-frame step in a loop
-(`Tracker.process_batch_device`) and keeps every slice.
+The JAX package compiles the whole step into one program with the
+state donated (its tracker.py:632); eager PyTorch would launch each of
+a frame's thousands of small ops from Python. So `Tracker` runs the
+fast step as `CapturedStep`: the same halves as `make_step_fast`
+(`FastHalves`) on buffers whose storage is fixed for the tracker's
+life, and on a card as CUDA graphs (tracking/graphs.py). A frame is a
+front graph (preprocess, odometry, the new pose and the shift
+decision; one per odometry or external delta), the shift read, and on
+a frame without a shift a back graph (fusion, raycast, the state's
+update). Eager are only each piece's first run (its warm-up) and a
+shift frame's back half; in static mode the two halves are one graph.
+On the CPU the same pieces run eagerly. `make_step_fast` stays the
+eager step, which the captured one is held against. The dense step
+runs eagerly.
+
+Outputs are consumed one frame late, so downloading poses and slices
+overlaps the next device work: each frame's scalars go to one of two
+output slots. The JAX package's batched step (make_batched_step_fast)
+scans a batch in one program with the shift decided on the device and
+the batch's slices in a fixed-size pool; here a batch is the per-frame
+step in a loop (`Tracker.process_batch_device`) and keeps every slice.
 """
 
 from __future__ import annotations
@@ -81,6 +95,7 @@ from kintinuous_tpu_torch.ops.rgbd import (
 )
 from kintinuous_tpu_torch.ops.surface_nets import extract_mesh
 from kintinuous_tpu_torch.ops.tsdf import VolumeState, clear_band, integrate, make_volume
+from kintinuous_tpu_torch.tracking.graphs import CAPTURED, EAGER, Pieces
 from kintinuous_tpu_torch.tracking.odometry import (
     build_map_pyramid,
     icp_odometry,
@@ -305,35 +320,51 @@ def make_step(cfg: KintinuousConfig, use_odometry: bool):
     return step
 
 
-def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
-    """The per-frame step: step(state, depth_raw, rgb_raw, ext_delta) ->
-    (new_state, outputs). depth_raw (H,W) and rgb_raw (H,W,3) are tensors
-    on the state's device; ext_delta (4,4) is used when use_odometry is
-    False. The state's volume and mirror are updated in place."""
-    cam = cfg.camera
-    cam_half = cam.at_level(1)
-    R = cfg.volume_resolution
-    vsz = cfg.voxel_size
-    S = cfg.voxel_shift
-    OV = cfg.shift_overlap
-    cap = cfg.extraction_capacity
-    levels = max(2, cfg.pyramid_levels - 1)
-    # schedule shifted one level: fast schedule (0,10,5,0) -> (10,5,0)
-    base_iters = cfg.icp_fast_iterations if cfg.fast_odometry else cfg.icp_iterations
-    iters = tuple(base_iters[1:]) if len(base_iters) > 1 else (10, 5)
-    SLAB_B = max(2, -(-(S + OV + 1) // 8))  # block-planes around a band
-    B_grid = R // 8
-    use_rgbd = cfg.rgbd_odometry or cfg.icp_plus_rgbd
-    # pallas=False: the JAX package's non-Pallas step, whose raycast is
-    # the gather raycast (window 6, two Newton steps) and which keeps no
-    # mirror; None or True run the kernels
-    gather = cfg.pallas is False
+class FrontOut(NamedTuple):
+    """The fast step's front half: what its back half reads."""
 
-    def extract_axis(vol, axis: int, s: int):
+    depth_m: torch.Tensor  # (H,W) filtered metres
+    rgb: torch.Tensor  # (H,W,3) f32
+    depth_half: torch.Tensor  # (h,w)
+    color_w: torch.Tensor  # (H,W) colour fusion weight
+    delta: torch.Tensor  # (4,4) odometry (or the external) delta
+    pose: torch.Tensor  # (4,4) the new pose, before any shift
+    icp_count: torch.Tensor  # ()
+    icp_residual: torch.Tensor  # ()
+    shift: torch.Tensor  # (3,) i32 the shift decision
+    rgbd: Optional[RGBDFramePyramid]  # this frame's (RGB-D odometry)
+
+
+class FastHalves:
+    """The fast step (make_step_fast) in its parts around the step's one
+    host read, the shift: `front` (preprocess, the pyramids, odometry,
+    the new pose and the shift decision), `roll` (a shift frame's band
+    extraction and the roll of the volume), `back` (fusion with the
+    mirror refresh, and the raycast)."""
+
+    def __init__(self, cfg: KintinuousConfig):
+        self.cfg = cfg
+        self.cam = cfg.camera
+        self.cam_half = cfg.camera.at_level(1)
+        self.levels = max(2, cfg.pyramid_levels - 1)
+        # schedule shifted one level: fast schedule (0,10,5,0) -> (10,5,0)
+        base_iters = cfg.icp_fast_iterations if cfg.fast_odometry else cfg.icp_iterations
+        self.iters = tuple(base_iters[1:]) if len(base_iters) > 1 else (10, 5)
+        S, OV = cfg.voxel_shift, cfg.shift_overlap
+        self.slab_b = max(2, -(-(S + OV + 1) // 8))  # block-planes around a band
+        self.use_rgbd = cfg.rgbd_odometry or cfg.icp_plus_rgbd
+        # pallas=False: the JAX package's non-Pallas step, whose raycast is
+        # the gather raycast (window 6, two Newton steps) and which keeps no
+        # mirror; None or True run the kernels
+        self.gather = cfg.pallas is False
+
+    def extract_axis(self, vol, axis: int, s: int):
         """Points of the band leaving along `axis`, from a band-leading
         slab of the blocked volume, and with meshing on the band's mesh
         (else None)."""
-        b0 = 0 if s > 0 else B_grid - SLAB_B
+        cfg, R, SLAB_B = self.cfg, self.cfg.volume_resolution, self.slab_b
+        S, OV, vsz = cfg.voxel_shift, cfg.shift_overlap, cfg.voxel_size
+        b0 = 0 if s > 0 else R // 8 - SLAB_B
         view = VolumeState(
             tsdf=slab_to_dense(vol.tsdf, axis, b0, SLAB_B, leading=True),
             cw=slab_to_dense(vol.cw, axis, b0, SLAB_B, leading=True),
@@ -342,7 +373,7 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
         )
         lo = (0, 0, 0 if s > 0 else SLAB_B * 8 - S - OV)
         pts = extract_points_packed(
-            view, lo, (R, R, S + OV), vsz, cap,
+            view, lo, (R, R, S + OV), vsz, cfg.extraction_capacity,
             clamp_edges=True, coord_offset=(0, 0, b0 * 8),
         )
         inv = list(VIEW_INV[axis])
@@ -355,83 +386,110 @@ def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
         # an even permutation of the axes: the winding stays right
         return pts, m._replace(vertices=m.vertices[:, inv], cells=m.cells[:, inv])
 
-    def step(state: TrackerState, depth_raw, rgb_raw, ext_delta):
-        dev = depth_raw.device
+    def front(self, state: TrackerState, depth_raw, rgb_raw, ext_delta,
+              use_odometry: bool) -> FrontOut:
+        """Reads the state, writes nothing of it."""
+        cfg, dev = self.cfg, depth_raw.device
         with record_function("kt.preprocess"):
             depth_m, rgb, depth_half, color_w = preprocess_frame(cfg, depth_raw, rgb_raw)
-            curr_pyr = build_map_pyramid(cam_half, depth_half, levels)
+            curr_pyr = build_map_pyramid(self.cam_half, depth_half, self.levels)
             curr_rgbd = None
-            if use_rgbd:
+            if self.use_rgbd:
                 intensity_half = pp.pyr_down_gauss(pp.rgb_to_intensity(rgb))
-                curr_rgbd = build_rgbd_pyramid(intensity_half, depth_half, levels)
+                curr_rgbd = build_rgbd_pyramid(intensity_half, depth_half, self.levels)
 
         with record_function("kt.odometry"):
             if use_odometry:
                 delta, icp_count, icp_res = _odometry(
-                    cfg, cam_half, levels, iters, state, curr_pyr, curr_rgbd,
-                    reassoc_icp=cfg.icp_reassoc_every)
+                    cfg, self.cam_half, self.levels, self.iters, state, curr_pyr,
+                    curr_rgbd, reassoc_icp=cfg.icp_reassoc_every)
             else:
                 delta = ext_delta
                 icp_count = torch.zeros((), dtype=torch.float32, device=dev)
                 icp_res = torch.zeros((), dtype=torch.float32, device=dev)
             pose = state.pose @ delta
+        with record_function("kt.shift"):
+            shift = (torch.zeros(3, dtype=torch.int32, device=dev) if cfg.static_mode
+                     else _shift_of(cfg, pose, state.dc))
+        return FrontOut(depth_m, rgb, depth_half, color_w, delta, pose, icp_count,
+                        icp_res, shift, curr_rgbd)
 
-        vol = state.vol
-        slices = (None, None, None)
-        meshes = (None, None, None)
-        shift = torch.zeros(3, dtype=torch.int32, device=dev)
-        shift_any = False
-        if not cfg.static_mode:
-            with record_function("kt.shift"):
-                shift = _shift_of(cfg, pose, state.dc)
-                # the step's one host synchronisation
-                shift_h = [int(s) for s in shift.cpu()]
-                shift_any = any(shift_h)
-                if shift_any:
-                    per_axis = [extract_axis(vol, a, s) if s != 0 else (None, None)
-                                for a, s in enumerate(shift_h)]
-                    slices = tuple(p for p, _ in per_axis)
-                    meshes = tuple(m for _, m in per_axis)
-                    t, c = shift_roll_clear(vol.tsdf, vol.cw, shift, S, R)
-                    vol = vol._replace(
-                        tsdf=t, cw=c,
-                        origin=vol.origin + shift.to(torch.float32) * vsz,
-                    )
-                    pose = pose.clone()
-                    pose[:3, 3] -= shift.to(torch.float32) * vsz
+    def roll(self, vol: BlockedVolume, pose, shift, shift_h):
+        """A shift frame: the leaving bands' points (and meshes), then the
+        volume rolled and cleared (new tensors) with its origin moved,
+        and the pose moved back. Returns (vol, pose, slices, meshes)."""
+        cfg = self.cfg
+        per_axis = [self.extract_axis(vol, a, s) if s != 0 else (None, None)
+                    for a, s in enumerate(shift_h)]
+        t, c = shift_roll_clear(vol.tsdf, vol.cw, shift, cfg.voxel_shift,
+                                cfg.volume_resolution)
+        vol = vol._replace(tsdf=t, cw=c,
+                           origin=vol.origin + shift.to(torch.float32) * cfg.voxel_size)
+        pose = pose.clone()
+        pose[:3, 3] -= shift.to(torch.float32) * cfg.voxel_size
+        return (vol, pose, tuple(p for p, _ in per_axis),
+                tuple(m for _, m in per_axis))
 
+    def back(self, mirror, vol: BlockedVolume, fo: FrontOut, pose, shift_any: bool):
+        """Fuse the frame into the volume and the mirror (in place) and
+        cast the next prediction; returns the raycast's result."""
+        cfg = self.cfg
         with record_function("kt.integrate"):
             integrate_cuda(
-                vol, cam, depth_m, rgb, color_w, pose, vsz, cfg.trunc_dist,
-                float(cfg.max_weight), band_cap=cfg.band_cap,
-                mirror=state.logical, dirty_all=shift_any,
+                vol, self.cam, fo.depth_m, fo.rgb, fo.color_w, pose, cfg.voxel_size,
+                cfg.trunc_dist, float(cfg.max_weight), band_cap=cfg.band_cap,
+                mirror=mirror, dirty_all=shift_any,
             )
         with record_function("kt.raycast"):
             # warm start from the measured depth only (as the JAX package)
-            if gather:
-                rc = raycast_fast(vol, cam_half, pose, None, depth_half, vsz,
-                                  cfg.volume_size, cfg.trunc_dist)
-            else:
-                rc = raycast_cuda(
-                    vol, cam_half, pose, depth_half, vsz, cfg.volume_size,
-                    cfg.trunc_dist, mirror=state.logical,
-                    newton=cfg.raycast_newton_iters,
-                )
+            if self.gather:
+                return raycast_fast(vol, self.cam_half, pose, None, fo.depth_half,
+                                    cfg.voxel_size, cfg.volume_size, cfg.trunc_dist)
+            return raycast_cuda(
+                vol, self.cam_half, pose, fo.depth_half, cfg.voxel_size, cfg.volume_size,
+                cfg.trunc_dist, mirror=mirror, newton=cfg.raycast_newton_iters,
+            )
+
+    def outputs(self, fo: FrontOut, pose, origin, rc, slices, meshes) -> StepOutputs:
         pose_global = pose.clone()
-        pose_global[:3, 3] += vol.origin
-        new_state = state._replace(
-            vol=vol, pose=pose, pred_vmap=rc.vmap, pred_nmap=rc.nmap,
-            pred_pose=pose, frame=state.frame + 1, prev_delta=delta,
-            rgbd=curr_rgbd,
-        )
-        out = StepOutputs(
-            pose_local=pose, pose_global=pose_global, shift=shift,
-            slices=slices, icp_count=icp_count, icp_residual=icp_res,
+        pose_global[:3, 3] += origin
+        return StepOutputs(
+            pose_local=pose, pose_global=pose_global, shift=fo.shift,
+            slices=slices, icp_count=fo.icp_count, icp_residual=fo.icp_residual,
             raycast_hits=(rc.depth > 0).sum().to(torch.float32),
-            mesh_patches=meshes if cfg.incremental_mesh else (),
+            mesh_patches=meshes if self.cfg.incremental_mesh else (),
             raycast_fallback=rc.fallback_frac,
         )
-        return new_state, out
+
+
+def make_step_fast(cfg: KintinuousConfig, use_odometry: bool):
+    """The per-frame step, eager: step(state, depth_raw, rgb_raw,
+    ext_delta) -> (new_state, outputs). depth_raw (H,W) and rgb_raw
+    (H,W,3) are tensors on the state's device; ext_delta (4,4) is used
+    when use_odometry is False. The state's volume and mirror are updated
+    in place. `Tracker` runs the same halves on fixed buffers
+    (`CapturedStep`), captured on a card."""
+    halves = FastHalves(cfg)
+
+    def step(state: TrackerState, depth_raw, rgb_raw, ext_delta):
+        fo = halves.front(state, depth_raw, rgb_raw, ext_delta, use_odometry)
+        vol, pose = state.vol, fo.pose
+        slices = meshes = (None, None, None)
+        shift_any = False
+        if not cfg.static_mode:
+            with record_function("kt.shift"):
+                # the step's one host synchronisation
+                shift_h = [int(s) for s in fo.shift.cpu()]
+                shift_any = any(shift_h)
+                if shift_any:
+                    vol, pose, slices, meshes = halves.roll(vol, pose, fo.shift, shift_h)
+        rc = halves.back(state.logical, vol, fo, pose, shift_any)
+        new_state = state._replace(
+            vol=vol, pose=pose, pred_vmap=rc.vmap, pred_nmap=rc.nmap,
+            pred_pose=pose, frame=state.frame + 1, prev_delta=fo.delta,
+            rgbd=fo.rgbd,
+        )
+        return new_state, halves.outputs(fo, pose, vol.origin, rc, slices, meshes)
 
     return step
 
@@ -541,6 +599,189 @@ def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+# a frame's scalars in one f32 vector, read on the host in one copy:
+# [pose_global (16) | icp count, residual, raycast fallback | slice
+# counts x,y,z | shift x,y,z | raycast hits]
+N_SCALARS = 26
+# Tracker.stats["step_mode"]: how each frame's step ran
+STEP_MODES = ("warmup", "shift", "captured", "replayed", "eager")
+
+
+def pack_scalars(out: StepOutputs) -> torch.Tensor:
+    """A step's outputs -> its (N_SCALARS,) f32 vector, on the device."""
+    dev = out.shift.device
+    zero = torch.zeros_like(out.shift[0])
+    counts = [s.count if s is not None else zero for s in out.slices]
+    fb = out.raycast_fallback
+    if not torch.is_tensor(fb):  # a constant (the gather raycast's 0.0)
+        fb = torch.full((), float(fb), dtype=torch.float32, device=dev)
+    return torch.cat([
+        out.pose_global.reshape(-1),
+        torch.stack([out.icp_count, out.icp_residual, fb]).float(),
+        torch.stack(counts).float(), out.shift.float(),
+        out.raycast_hits.reshape(1).float(),
+    ])
+
+
+class FrameResult(NamedTuple):
+    """What the host reads of a frame, one frame late."""
+
+    scalars: torch.Tensor  # (N_SCALARS,) f32, see pack_scalars
+    slices: Tuple  # per axis: PackedExtract or None
+    mesh_patches: Tuple  # per axis: MeshResult or None (meshing on), else ()
+    mode: str  # one of STEP_MODES
+
+
+def _own(state: TrackerState) -> TrackerState:
+    """The state with fresh storage for every field but the volume's
+    tsdf and cw and the mirror, which are kept: no two fields share
+    storage (initial_state's zero RGB-D pyramid does), so each can be
+    written in place."""
+    def c(x):
+        return None if x is None else x.clone()
+
+    vol = state.vol
+    return state._replace(
+        vol=vol._replace(wrap=c(vol.wrap), origin=c(vol.origin)),
+        pose=c(state.pose), pred_vmap=c(state.pred_vmap), pred_nmap=c(state.pred_nmap),
+        pred_pose=c(state.pred_pose), frame=c(state.frame), dc=c(state.dc),
+        prev_delta=c(state.prev_delta), pw=c(state.pw),
+        rgbd=(None if state.rgbd is None else RGBDFramePyramid(
+            *(tuple(c(x) for x in field) for field in state.rgbd))),
+    )
+
+
+class CapturedStep:
+    """make_step_fast on buffers whose storage is fixed for the tracker's
+    life, in pieces (tracking/graphs.Pieces) that a card runs as CUDA
+    graphs: the front half (FastHalves.front, with the pyramid and the
+    delta written into the state), one per (odometry | external delta);
+    then the host reads the shift; then on a frame without a shift the
+    back half (fusion, raycast and the state's update). A shift frame
+    runs its roll and back half eagerly, writing into the same buffers.
+    In static mode nothing is read: front and back are one piece.
+
+    The inputs are copied into fixed buffers, the front half's results
+    live in fixed buffers (`fo`), and every frame's scalars go to one of
+    two output slots, so frame k's outlive frame k+1's step. Setting
+    `state` adopts the given state's tensors as the buffers and drops
+    the captures; a replay against buffers that moved raises."""
+
+    def __init__(self, cfg: KintinuousConfig, state: TrackerState, device: torch.device):
+        self.cfg = cfg
+        self.halves = FastHalves(cfg)
+        self.pieces = Pieces(device)
+        cam = cfg.camera
+        self.depth_in = torch.zeros((cam.height, cam.width), dtype=torch.float32,
+                                    device=device)
+        self.rgb_in = torch.zeros((cam.height, cam.width, 3), dtype=torch.uint8,
+                                  device=device)
+        self.delta_in = torch.eye(4, dtype=torch.float32, device=device)
+        self.scratch = torch.zeros(N_SCALARS, dtype=torch.float32, device=device)
+        self.slots = torch.zeros((2, N_SCALARS), dtype=torch.float32, device=device)
+        self.fo: Optional[FrontOut] = None  # made by the first front half
+        self._n = 0  # frames stepped
+        self.state = state
+
+    @property
+    def state(self) -> TrackerState:
+        return self._state
+
+    @state.setter
+    def state(self, state: TrackerState) -> None:
+        self._state = _own(state)
+        self.pieces.drop()
+
+    def buffers(self) -> list:
+        """Every tensor a piece reads or writes."""
+        st = self._state
+        out = [st.vol.tsdf, st.vol.cw, st.vol.wrap, st.vol.origin, st.logical, st.pose,
+               st.pred_vmap, st.pred_nmap, st.pred_pose, st.frame, st.dc,
+               st.prev_delta, st.pw, self.depth_in, self.rgb_in, self.delta_in,
+               self.scratch]
+        for field in st.rgbd or ():
+            out.extend(field)
+        if self.fo is not None:
+            out.extend(x for x in self.fo[:-1])
+        return out
+
+    def _front(self, use_odometry: bool) -> None:
+        st = self._state
+        fo = self.halves.front(st, self.depth_in, self.rgb_in,
+                               None if use_odometry else self.delta_in, use_odometry)
+        if self.fo is None:  # the first front half, eager: make the buffers
+            self.fo = FrontOut(*(x.clone() for x in fo[:-1]), None)
+        else:
+            for dst, src in zip(self.fo[:-1], fo[:-1]):
+                dst.copy_(src)
+        st.prev_delta.copy_(fo.delta)
+        if fo.rgbd is not None:  # the next frame's previous RGB-D frame
+            for dst, src in zip(st.rgbd, fo.rgbd):
+                for d, x in zip(dst, src):
+                    d.copy_(x)
+
+    def _finish(self, pose, rc, slices, meshes) -> None:
+        """The state's update and the frame's scalars."""
+        st = self._state
+        st.pose.copy_(pose)
+        st.pred_pose.copy_(pose)
+        st.pred_vmap.copy_(rc.vmap)
+        st.pred_nmap.copy_(rc.nmap)
+        st.frame.add_(1)
+        out = self.halves.outputs(self.fo, pose, st.vol.origin, rc, slices, meshes)
+        self.scratch.copy_(pack_scalars(out))
+
+    def _back(self) -> None:
+        st = self._state
+        rc = self.halves.back(st.logical, st.vol, self.fo, self.fo.pose, False)
+        self._finish(self.fo.pose, rc, (None, None, None), (None, None, None))
+
+    def _back_shift(self, shift_h):
+        st, fo = self._state, self.fo
+        with record_function("kt.shift"):
+            vol, pose, slices, meshes = self.halves.roll(st.vol, fo.pose, fo.shift, shift_h)
+            st.vol.tsdf.copy_(vol.tsdf)
+            st.vol.cw.copy_(vol.cw)
+            st.vol.origin.copy_(vol.origin)
+            del vol
+        rc = self.halves.back(st.logical, st.vol, fo, pose, True)
+        self._finish(pose, rc, slices, meshes)
+        return slices, meshes
+
+    def __call__(self, depth_raw, rgb_raw, ext_delta,
+                 use_odometry: bool) -> FrameResult:
+        """One frame: depth_raw (H,W) and rgb_raw (H,W,3) u8 on the
+        device, ext_delta (4,4) when use_odometry is False."""
+        cfg, pieces = self.cfg, self.pieces
+        slices = meshes = (None, None, None)
+        shift = False
+        with pieces.on_stream():
+            self.depth_in.copy_(depth_raw)
+            self.rgb_in.copy_(rgb_raw)
+            if not use_odometry:
+                self.delta_in.copy_(ext_delta)
+            name = "odometry" if use_odometry else "ext_delta"
+            if cfg.static_mode:
+                modes = [pieces.run(f"{name}+back", lambda: (self._front(use_odometry),
+                                                              self._back()), self.buffers)]
+            else:
+                modes = [pieces.run(name, lambda: self._front(use_odometry), self.buffers)]
+                with record_function("kt.shift"):
+                    # the step's one host synchronisation
+                    shift_h = [int(s) for s in self.fo.shift.cpu()]
+                shift = any(shift_h)
+                if shift:
+                    slices, meshes = self._back_shift(shift_h)
+                else:
+                    modes.append(pieces.run("back", self._back, self.buffers))
+            slot = self.slots[self._n % 2]
+            slot.copy_(self.scratch)
+        self._n += 1
+        mode = ("shift" if shift else "warmup" if EAGER in modes
+                else "captured" if CAPTURED in modes else "replayed")
+        return FrameResult(slot, slices, meshes if cfg.incremental_mesh else (), mode)
+
+
 class Tracker:
     """Host wrapper: owns the device state, streams frames through the
     step, and materialises poses and slices on the host one frame late.
@@ -553,10 +794,14 @@ class Tracker:
                  mesh_callback: Optional[Callable[[MeshPatch], None]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        make = make_step_fast if cfg.fast_mode else make_step
-        self._step_odom = make(cfg, use_odometry=True)
-        self._step_ext = make(cfg, use_odometry=False)
-        self.state = initial_state(cfg, self.device)
+        state = initial_state(cfg, self.device)
+        # the fast step on fixed buffers, captured on a card; the dense
+        # step eager
+        self._captured = CapturedStep(cfg, state, self.device) if cfg.fast_mode else None
+        if self._captured is None:
+            self._step_odom = make_step(cfg, use_odometry=True)
+            self._step_ext = make_step(cfg, use_odometry=False)
+            self._state = state
         self._pending: deque = deque()  # (out, timestamp_us, frame_idx)
         self.slices: List[CloudSlice] = []
         self.mesh_patches: List[MeshPatch] = []  # band meshes (meshing on)
@@ -566,9 +811,36 @@ class Tracker:
         self.mesh_callback = mesh_callback
         self.pose_callback: Optional[Callable] = None
         self._frame_idx = 0
-        self.stats = {"icp_count": [], "icp_residual": [], "raycast_fallback": []}
+        # step_mode: each frame's STEP_MODES index
+        self.stats = {"icp_count": [], "icp_residual": [], "raycast_fallback": [],
+                      "step_mode": []}
         self.shift_log: List[np.ndarray] = []
         self.collect_slices: bool = True
+
+    @property
+    def state(self) -> TrackerState:
+        return self._captured.state if self._captured is not None else self._state
+
+    @state.setter
+    def state(self, state: TrackerState) -> None:
+        """Replace the state (a restore, a carried state): the fast step
+        adopts its tensors as its buffers and captures again."""
+        if self._captured is not None:
+            self._captured.state = state
+        else:
+            self._state = state
+
+    def step_counts(self) -> dict:
+        """{mode: frames} over the frames consumed so far (STEP_MODES)."""
+        modes = [STEP_MODES[int(m)] for m in self.stats["step_mode"]]
+        return {m: modes.count(m) for m in STEP_MODES}
+
+    def _step(self, d, c, delta, use_odometry: bool) -> FrameResult:
+        if self._captured is not None:
+            return self._captured(d, c, delta, use_odometry)
+        step = self._step_odom if use_odometry else self._step_ext
+        self._state, out = step(self._state, d, c, delta)
+        return FrameResult(pack_scalars(out), out.slices, out.mesh_patches, "eager")
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return upload(arr, self.device)
@@ -589,12 +861,12 @@ class Tracker:
         if ext_delta is not None or first:
             delta = np.eye(4, dtype=np.float32) if (first or ext_delta is None) \
                 else np.asarray(ext_delta, dtype=np.float32)
-            self.state, out = self._step_ext(self.state, d, c, self._upload(delta))
+            res = self._step(d, c, self._upload(delta), use_odometry=False)
         else:
-            self.state, out = self._step_odom(self.state, d, c, None)
-        self._push(out, timestamp_us)
+            res = self._step(d, c, None, use_odometry=True)
+        self._push(res, timestamp_us)
 
-    def _push(self, out: StepOutputs, timestamp_us: int) -> None:
+    def _push(self, out: FrameResult, timestamp_us: int) -> None:
         """Queue a frame's outputs and consume the previous frame's."""
         self._pending.append((out, timestamp_us, self._frame_idx))
         self._frame_idx += 1
@@ -636,14 +908,14 @@ class Tracker:
         if self._frame_idx == 0:
             raise ValueError("the first frame must go through process_frame")
         for d, c, ts in zip(depths, rgbs, ts_list):
-            self.state, out = self._step_odom(self.state, d, c, None)
-            self._push(out, ts)
+            self._push(self._step(d, c, None, use_odometry=True), ts)
 
     def warm_per_frame_step(self) -> None:
         """Build the CUDA kernels ahead of need, so the offline tail's
         first per-frame step does not pay for it inside the run (the JAX
-        package compiles its per-frame program here; PyTorch has nothing
-        to compile). Safe to call from a background thread."""
+        package compiles its per-frame program here; the step's graphs
+        are captured by its own first frames, on the frame loop's
+        thread). Safe to call from a background thread."""
         if self.device.type == "cuda":
             from kintinuous_tpu_torch.ops import kernels
 
@@ -657,16 +929,8 @@ class Tracker:
         if self.mesh_callback:
             self.mesh_callback(patch)
 
-    def _consume(self, out: StepOutputs, timestamp_us: int, frame_idx: int) -> None:
-        zero = torch.zeros_like(out.shift[0])
-        counts = [s.count if s is not None else zero for s in out.slices]
-        scal = torch.cat([
-            out.pose_global.reshape(-1),
-            torch.stack([out.icp_count, out.icp_residual,
-                         torch.as_tensor(out.raycast_fallback,
-                                         device=out.shift.device)]).float(),
-            torch.stack(counts).float(), out.shift.float(),
-        ]).cpu().numpy()  # one read for every scalar
+    def _consume(self, out: FrameResult, timestamp_us: int, frame_idx: int) -> None:
+        scal = out.scalars.cpu().numpy()  # one read for every scalar
         pose_g = scal[:16].reshape(4, 4).astype(np.float32)
         icp_c, icp_r, fb = scal[16:19]
         cnt3 = scal[19:22].astype(np.int64)
@@ -678,6 +942,7 @@ class Tracker:
         self.stats["icp_count"].append(float(icp_c))
         self.stats["icp_residual"].append(float(icp_r))
         self.stats["raycast_fallback"].append(float(fb))
+        self.stats["step_mode"].append(float(STEP_MODES.index(out.mode)))
         self.shift_log.append(shift)
         if not self.collect_slices:
             return

@@ -26,6 +26,7 @@ Start with `ViewerServer(engine)` or the CLI's `--viz-port`.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import struct
 import threading
@@ -342,7 +343,11 @@ class ViewerServer:
             d = np.asarray(last[0]).astype(np.float32)
             img = TURBO[np.clip(d / 6000.0 * 255, 0, 255).astype(np.uint8)]
         elif name in MODEL_PANES and e.tracker.state is not None:
-            img = model_view(e.tracker, name)
+            # the tracker updates its state in place on its own stream:
+            # render between two frames (an engine without a frame loop
+            # has no lock)
+            with getattr(e, "frame_lock", None) or contextlib.nullcontext():
+                img = model_view(e.tracker, name)
         return None if img is None else encode_png(img)
 
     # --------------------------------------------------------- control

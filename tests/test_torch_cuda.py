@@ -773,3 +773,102 @@ def test_sharded_tracker_across_cards_follows_one_card(cards, fast):
     np.testing.assert_allclose(np.array(runs[0].poses), np.array(runs[1].poses), atol=1e-6)
     got, want = (as_dense(r.state.vol) for r in runs)
     assert torch.equal(got.tsdf.cpu().view(torch.int32), want.tsdf.cpu().view(torch.int32))
+
+
+# ------------------------------------------------- the captured step
+# The helpers come from tests/test_torch_graph.py by its module name (pytest
+# puts tests/ on the path; a `tests` package installed on the card's
+# machine would shadow `tests.test_torch_graph`).
+def _graph_run(cfg, path, card):
+    """The tracker (captured step) and the eager make_step_fast on the
+    same frames, and the counted launches of the tracker's run."""
+    from test_torch_graph import eager_run, path_frames, tracker_run
+
+    frames, deltas = path_frames(path, cam=cfg.camera)
+    wrappers = (band_fusion, free_carve, mirror_refresh, tile_raycast, build_mirror)
+    before = [w.launches for w in wrappers]
+    tr = tracker_run(cfg, frames, deltas, device=card)
+    torch.cuda.synchronize()
+    moved = dict(zip(("K1", "K2", "K3", "K4", "K5"),
+                     (w.launches - b for w, b in zip(wrappers, before))))
+    return tr, eager_run(cfg, frames, deltas, device=card), moved, len(frames)
+
+
+@pytest.mark.parametrize("path", ["orbit", "walk"])
+@pytest.mark.parametrize("config", ["A", "B", "gather", "odd", "static", "mesh_dc"])
+def test_captured_step_equals_the_eager_step_on_the_card(card, config, path):
+    """The tracker's step runs as CUDA graphs (captured once, then
+    replayed) and equals make_step_fast run eagerly on the same frames
+    bit for bit; each kernel's count is its launches, replays included:
+    K1 and K2 once a frame, K3 and K4 once a frame with a mirror, K5
+    once a frame at an odd block count."""
+    from test_torch_graph import CONFIGS, assert_same_run, graph_cfg
+
+    cfg = graph_cfg(**CONFIGS[config])
+    tr, eager, moved, n = _graph_run(cfg, path, card)
+    counts = tr.step_counts()
+    assert counts["replayed"] > 0 and counts["eager"] == 0, counts
+    assert counts["shift"] == sum(1 for s in tr.shift_log if np.any(s)), counts
+    assert tr._captured.pieces.captured, "nothing was captured"
+    assert_same_run(tr, eager)
+    mirror = config not in ("gather", "odd")
+    assert moved == {"K1": n, "K2": n, "K3": n if mirror else 0,
+                     "K4": 0 if config == "gather" else n,
+                     "K5": n if config == "odd" else 0}, moved
+
+
+def test_capture_beside_a_busy_thread(card):
+    """Capture uses thread_local mode: another thread that uploads from
+    pinned memory, allocates, computes and reads back on the card
+    meanwhile (the engine's uploader, the -od workers) breaks no
+    capture. (A draw from torch's CUDA generator or a device-wide
+    synchronize in another thread during a capture does break it; the
+    port makes neither.)"""
+    import threading
+
+    from test_torch_graph import graph_cfg, path_frames, tracker_run
+
+    stop = threading.Event()
+    errors = []
+
+    def busy():
+        try:
+            host = torch.ones(256, 256).pin_memory()
+            while not stop.is_set():
+                x = host.to(card, non_blocking=True)
+                float((x @ x).sum().cpu())
+        except Exception as e:  # reported by the test
+            errors.append(e)
+
+    t = threading.Thread(target=busy, daemon=True)
+    t.start()
+    try:
+        frames, deltas = path_frames("orbit")
+        tr = tracker_run(graph_cfg(), frames, deltas, device=card)
+    finally:
+        stop.set()
+        t.join()
+    assert not errors, errors
+    assert tr.step_counts()["replayed"] > 0
+
+
+def test_a_restore_on_the_card_captures_again(card):
+    """Setting the state (a restore) drops the graphs; the next frames
+    capture again and replay; a replay on moved buffers raises."""
+    from test_torch_graph import graph_cfg, path_frames
+
+    frames, _ = path_frames("orbit", n=8)
+    tr = Tracker(graph_cfg(), device=card)
+    for i in range(4):
+        tr.process_frame(*frames[i], i * 33333)
+    step = tr._captured
+    tr.state = tr.state._replace(pose=tr.state.pose.clone())
+    assert step.pieces.captured == ()
+    tr.process_frame(*frames[4], 4 * 33333)
+    tr.process_frame(*frames[5], 5 * 33333)
+    tr.flush()
+    assert set(step.pieces.captured) == {"back", "odometry"}
+    assert tr.step_counts()["replayed"] >= 2
+    step._state = step.state._replace(pose=step.state.pose.clone())
+    with pytest.raises(RuntimeError, match="moved"):
+        tr.process_frame(*frames[6], 6 * 33333)
