@@ -18,7 +18,11 @@ prediction, 16-voxel shifts, ICP odometry):
      each row with its share of its bound; beside them the floor of a
      launch (the carve at count 0) and the raycast wrapper's host time
      by part; the rebuilt mirror must equal the tracker's live one bit
-     for bit;
+     for bit; and the GN update (csrc/gn.cu) bit for bit against its
+     plain version on the frame's own ICP systems (levels 1 and 0, 6
+     steps each, with the motion prior), timed beside its plain
+     version, both also as one CUDA graph, and torch.linalg's solve and
+     matrix_exp;
   2. tracks a 96-frame orbit with ICP odometry: ATE < 1 cm and more than
      2000 ICP inliers on each of the last 10 frames;
   3. replays a 40-frame ground-truth walk 1.5 m backwards that shifts
@@ -143,13 +147,16 @@ prediction, 16-voxel shifts, ICP odometry):
 
 and checks that each run of phases 2-4, 6, 7 and 11 launched K1-K4,
 phase 5 the rebuild, phase 8 the four probes, phase 9 K1, K2, K4 and K5
-once a frame and K3 never, phase 10 no kernel, phase 12 K1 and K2 once
-a frame and K3-K5 never, phase 13 K1-K4 once a frame and K5 never,
-phase 14a K1 and K2 only, phase 14b K1 and K2 4 times a frame (once a
-slab; 5 in the replay, which runs the single card too) and K3-K5 never,
-phase 14c none, and phase 15 K1-K4, with the counts set to 0
-before each path; phases 2, 3, 6 and 16 K1-K4 exactly once a frame,
-replays included. On every path each tracker's frames are warm-up,
+once a frame and K3 never, phase 10 no kernel but the GN update, phase
+12 K1 and K2 once a frame and K3-K5 never, phase 13 K1-K4 once a frame
+and K5 never, phase 14a K1 and K2 only, phase 14b K1 and K2 4 times a
+frame (once a slab; 5 in the replay, which runs the single card too)
+and K3-K5 never, phase 14c only the GN update, and phase 15 K1-K4,
+with the counts set to 0 before each path; phases 2, 3, 6 and 16 K1-K4
+exactly once a frame, replays included; and the GN update once a GN
+step of a tracked frame (17 a frame at config A, 21 at config B) on
+phases 2, 6, 9's orbit, 13 and 16, never on a ground-truth walk, and
+on every other tracking path at least once. On every path each tracker's frames are warm-up,
 shift, captured or replayed frames of its captured step (at most 3
 warm-up frames, a shift frame exactly where the volume shifted, never
 the eager one-piece step), and those of a tracker without one (the
@@ -196,6 +203,12 @@ OPS_FREE_VOXEL = 6
 OPS_MIRROR_VOXEL = 1
 OPS_RAY_PIXEL = 30
 OPS_RAY_TAP = 70
+# the GN update (csrc/gn.cu), once: ~700 f32 operations (its SASS, the
+# divisions' slow paths aside); bytes in and out with the motion prior:
+# A, b, count, T, T_prior, its weight, the new pose
+OPS_GN_UPDATE = 700
+GN_BYTES = 36 * 4 + 6 * 4 + 4 + 16 * 4 + 16 * 4 + 4 + 16 * 4
+GN_CHECK_STEPS = 6  # phase 1: GN systems a pyramid level
 
 ORBIT_FRAMES = 96
 WALK_FRAMES = 40
@@ -426,6 +439,7 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
     main path gives it for the fifth frame of a ground-truth replay."""
     import torch
 
+    from kintinuous_tpu_torch.geometry import se3
     from kintinuous_tpu_torch.ops.blocked import BLOCK, blocked_to_dense
     from kintinuous_tpu_torch.ops.cuda_integrate import (
         band_fusion, band_fusion_plain, dirty_pairs, free_carve,
@@ -435,6 +449,7 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
         RAYCAST_PAIRS, _f32, build_mirror, build_mirror_plain, mirror_refresh,
         mirror_refresh_plain, ray_setup, raycast_params, tile_raycast, tile_raycast_plain,
     )
+    from kintinuous_tpu_torch.ops.reduce import gn_update, gn_update_plain
     from kintinuous_tpu_torch.tracking.tracker import Tracker, preprocess_frame
 
     cam, cam_half = cfg.camera, cfg.camera.at_level(1)
@@ -670,7 +685,93 @@ def check_kernels(cfg, dev, frames, poses, card: str) -> dict:
             lambda: k4(tile_raycast), st.logical, t_warm, rp, cam_half, vsz, trunc,
             window, newton),
     )
+
+    # the GN update on the frame's own systems, bit for bit; timed on the
+    # last, eagerly and as the captured step runs it, in a CUDA graph
+    systems = gn_systems(cfg, st, depth_half)
+    args = systems[-1]
+    A, b, _, T_last = args[:4]
+
+    def library_gn():
+        xi = torch.linalg.solve(A, b)
+        twist = torch.zeros((4, 4), dtype=torch.float32, device=dev)
+        twist[:3, :3] = se3.hat(xi[:3])
+        twist[:3, 3] = xi[3:]
+        return torch.linalg.matrix_exp(twist) @ T_last
+
+    graphs = {name: graph_of(lambda fn=fn: fn(*args))
+              for name, fn in (("kernel", gn_update), ("plain", gn_update_plain))}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graphs["plain"].replay()
+        torch.cuda.synchronize()
+    plain_ops = sum(c for c, _ in device_work(prof)[0].values())
+    report(
+        "gn_update", "kintinuous_tpu_torch/csrc/gn.cu",
+        "none: XLA fuses the JAX package's solve (kintinuous_tpu/ops/reduce.py)", 0.0,
+        lambda: gn_update(*args), lambda: gn_update_plain(*args),
+        GN_BYTES, OPS_GN_UPDATE, library=library_gn,
+        systems=len(systems), graph_ms=time_ms(graphs["kernel"].replay),
+        plain_graph_ms=time_ms(graphs["plain"].replay), plain_graph_device_ops=plain_ops,
+        library_is="torch.linalg.solve, then matrix_exp of the twist",
+    )
     return rows
+
+
+def gn_systems(cfg, st, depth_half) -> list:
+    """Phase 1's GN systems: the frame's ICP odometry against the
+    state's prediction, level 1 then level 0, each level one association
+    at the pose it starts from and GN_CHECK_STEPS systems built on it,
+    each at the pose the kernel gave the step before, with the state's
+    motion prior. On each the kernel equals gn_update_plain bit for bit;
+    returns each step's gn_update arguments."""
+    import math
+
+    import torch
+
+    from kintinuous_tpu_torch.geometry import se3
+    from kintinuous_tpu_torch.ops.reduce import (
+        gn_update, gn_update_plain, icp_associate, icp_build_from_assoc, pack_maps)
+    from kintinuous_tpu_torch.tracking.odometry import build_map_pyramid, pyramid_from_maps
+
+    cam = cfg.camera.at_level(1)
+    curr = build_map_pyramid(cam, depth_half, 2)
+    Tinv = se3.inverse(st.pred_pose)
+    pv = torch.einsum("ij,jhw->ihw", Tinv[:3, :3], st.pred_vmap) + Tinv[:3, 3, None, None]
+    pred = pyramid_from_maps(pv, torch.einsum("ij,jhw->ihw", Tinv[:3, :3], st.pred_nmap), 2)
+    eye = torch.eye(4, dtype=torch.float32, device=st.pose.device)
+    T = torch.where(st.pw > 0, st.prev_delta, eye)
+    sin_t = math.sin(math.radians(cfg.icp_angle_thresh_deg))
+    systems, moved = [], 0
+    for level in (1, 0):
+        (vc, nc), (vp, np_) = curr[level], pred[level]
+        assoc = icp_associate(cam.at_level(level), T, vc, pack_maps(vp, np_),
+                              tuple(vp.shape[1:]))
+        for _ in range(GN_CHECK_STEPS):
+            s = icp_build_from_assoc(T, vc, nc, *assoc, cfg.icp_dist_thresh, sin_t)
+            args = (s.A, s.b, s.count, T, st.prev_delta, st.pw, 30.0)
+            got = gn_update(*args)
+            assert torch.equal(got.view(torch.int32), gn_update_plain(*args).view(torch.int32)), \
+                f"the GN update differs from its plain version at level {level}"
+            moved += int(not torch.equal(got, T))
+            systems.append(args)
+            T = got
+    assert moved > len(systems) // 2, f"{moved} of {len(systems)} GN steps moved the pose"
+    return systems
+
+
+def graph_of(fn):
+    """fn captured in a CUDA graph after one run on the capture's stream."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return graph
 
 
 def track_orbit(cfg, dev, frames, poses, card: str, n_frames: int = ORBIT_FRAMES,
@@ -2731,13 +2832,14 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
     from kintinuous_tpu_torch.ops.cuda_integrate import band_fusion, free_carve
     from kintinuous_tpu_torch.ops.cuda_raycast import (
         build_mirror, mirror_refresh, tile_raycast)
+    from kintinuous_tpu_torch.ops.reduce import gn_update
     from kintinuous_tpu_torch.tools import proto_integrate as P
 
     wrappers = {"band_fusion": band_fusion, "free_carve": free_carve,
                 "mirror_refresh": mirror_refresh, "build_mirror": build_mirror,
                 "tile_raycast": tile_raycast, "probe_rows": P.run_rows,
                 "probe_dma": P.run_dma, "probe_full": P.run_full,
-                "probe_dyn": P.run_dyn}
+                "probe_dyn": P.run_dyn, "gn_update": gn_update}
     record_step_modes()
     log_dir = tempfile.TemporaryDirectory()
     d = log_dir.name
@@ -2759,6 +2861,31 @@ def run(cfg, dev, card: str = "", trace_frames: int = 0) -> list:
                          d, room)
     finally:
         log_dir.cleanup()
+
+
+def check_gn_launches(by_path: dict) -> None:
+    """The GN update launches once a GN step of a tracked frame, replays
+    included: 17 a frame with ICP odometry at config A (10 steps at the
+    half-resolution level in whole groups of icp_reassoc_every = 3, so
+    12, and 5 at the next), 21 with config B's fused odometry; never on
+    a ground-truth replay (the walks); on every other path that tracks
+    a frame (the dense, pallas=False, -od, sharded and engine paths) at
+    least once. Printed before it is checked."""
+    gn = {path: counts["gn_update"] for path, counts in by_path.items()}
+    print(json.dumps({"phase": "gn_update_launches", "by_path": gn}), flush=True)
+    # phase 16: four orbit runs and four tails of tracked frames, the
+    # first frame of each run placed
+    graph_tracked = 4 * (GRAPH_ORBIT_FRAMES - 1) + 4 * GRAPH_TRACE_FRAMES
+    want = {"orbit": 17 * (ORBIT_FRAMES - 1), "odd_orbit": 17 * (ODD_ORBIT_FRAMES - 1),
+            "orbit_rgbd": 21 * (ORBIT_RGBD_FRAMES - 1), "live_viewer": 17 * (LIVE_FRAMES - 1),
+            "captured_vs_eager": 17 * graph_tracked,
+            "walk": 0, "odd_walk": 0, "dense_walk": 0, "sharded_walk": 0}
+    got = {path: gn[path] for path in want}
+    assert got == want, f"GN update launches {got}, want {want}"
+    for path in ("engine", "engine_per_frame", "engine_mesh", "dense_orbit", "dense_profile",
+                 "dense_cli", "od_lap", "gather_orbit", "gather_profile", "sharded_orbit",
+                 "dense_sharded"):
+        assert gn[path] > 0, f"the {path} path launched no GN update"
 
 
 def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, d,
@@ -2811,7 +2938,8 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
     counted("odd_orbit", track_orbit, odd, dev, frames, poses, card, ODD_ORBIT_FRAMES,
             "odd_orbit")
     counted("odd_walk", walk_gt, odd, dev, card, "odd_walk")
-    # the dense path (no --fast): plain PyTorch, none of the kernels
+    # the dense path (no --fast): plain PyTorch but for the GN update,
+    # the one kernel it launches
     dense = KintinuousConfig()
     assert not dense.fast_mode
     counted("dense_check", dense_card_vs_cpu, dev, frames, poses, card)
@@ -2864,8 +2992,9 @@ def run_paths(cfg, dev, card, trace_frames, wrappers, rows, frames, poses, lap, 
     print(json.dumps({"phase": "step_modes", "card": card, "by_path": modes_by_path}),
           flush=True)
     for path in DENSE_PATHS + ("dense_sharded",):
-        launched = {k: n for k, n in by_path[path].items() if n}
+        launched = {k: n for k, n in by_path[path].items() if n and k != "gn_update"}
         assert not launched, f"the {path} path launched {launched}"
+    check_gn_launches(by_path)
     for path in ("orbit", "walk", "orbit_rgbd", "engine_mesh", "od_lap", "reader") + tuple(
             p for p, _ in ENGINE_RUNS):
         # K1-K4 run on every frame

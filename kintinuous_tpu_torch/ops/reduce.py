@@ -2,10 +2,13 @@
 kintinuous_tpu/ops/reduce.py: icp_associate, icp_build_from_assoc,
 icp_step, _cholesky_solve6, solve_gn, add_motion_prior, icp_solve_level).
 
-Every GN step stays on the device: the association, the system build
-(two matmuls), the unrolled Cholesky solve and the accept test are
-tensor ops with no host read. Twist convention: xi = [omega, v];
-updates compose as T <- exp(xi) @ T.
+Every GN step stays on the device: the association and the system build
+(two matmuls) are tensor ops, and the step's tail (the optional RGB-D
+fusion, the motion prior, the unrolled Cholesky solve, the accept test
+and the pose update) is `gn_update`, one launch of csrc/gn.cu on a card
+and its plain version, `gn_update_plain`, on the CPU. Nothing reads the
+device on the host. Twist convention: xi = [omega, v]; updates compose
+as T <- exp(xi) @ T.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from kintinuous_tpu_torch.config import CameraIntrinsics
 from kintinuous_tpu_torch.geometry import se3
+from kintinuous_tpu_torch.ops import kernels as K
 
 # |coordinate| bound before a float -> int cast: out-of-image values
 # stay out of the image and the cast stays defined
@@ -187,6 +191,65 @@ def add_motion_prior(A, b, T, T_prior, weight):
     return A + torch.diag(w6), b + w6 * xi_p
 
 
+def gn_update_plain(A, b, count, T, T_prior=None, prior_weight=0.0,
+                    min_inliers: float = 30.0, icp=None, w2: float = 0.0):
+    """Plain version of the GN-update kernel: the step's tail as tensor
+    ops (see gn_update)."""
+    if icp is not None:
+        # intensity-gradient units dwarf metric ICP units by ~1e4:
+        # trace-normalise each system so w2 sets the balance
+        s_rgb = 1.0 / (torch.trace(A) + 1e-12)
+        s_icp = 1.0 / (torch.trace(icp.A) + 1e-12)
+        A = s_rgb * A + w2 * s_icp * icp.A
+        b = s_rgb * b + w2 * s_icp * icp.b
+    if T_prior is not None:
+        A, b = add_motion_prior(A, b, T, T_prior, prior_weight)
+    xi, ok = solve_gn(A, b)
+    ok = ok & (count >= min_inliers)
+    return torch.where(ok, se3.exp_se3(xi) @ T, T)
+
+
+_SIGNATURES = {"kt_gn_update": (K.P,) * 8 + (K.F,) * 3 + (K.P,) * 2}
+
+
+def gn_update(A, b, count, T, T_prior=None, prior_weight=0.0,
+              min_inliers: float = 30.0, icp=None, w2: float = 0.0):
+    """One GN step's tail: the new pose (4,4), on T's device. With `icp`
+    (a system with fields A and b), A and b are the photometric system
+    and the two are fused, each divided by its trace and the ICP one
+    weighted by w2; with T_prior, the relative motion prior of weight
+    prior_weight (a float or a () tensor) is added; then the damped
+    Cholesky solve, and exp(xi) @ T if xi is finite and count >=
+    min_inliers, else T.
+
+    For CUDA tensors one launch of kt_gn_update (csrc/gn.cu), which
+    repeats the plain version's operations and their rounding, so the
+    two give the same bits; for CPU tensors the plain version. Counts
+    its launches in `gn_update.launches`."""
+    if T.device.type == "cpu":
+        return gn_update_plain(A, b, count, T, T_prior, prior_weight, min_inliers, icp, w2)
+    pw = prior_weight if isinstance(prior_weight, torch.Tensor) else None
+    optional = (T_prior, pw) + ((None, None) if icp is None else (icp.A, icp.b))
+    K.require_cuda("gn_update", T, A, b, count, *(t for t in optional if t is not None))
+    out = torch.empty((4, 4), dtype=torch.float32, device=T.device)
+    lib = K.library("gn", _SIGNATURES)
+    with K.on_device(T):
+        err = lib.kt_gn_update(
+            A.data_ptr(), b.data_ptr(), count.data_ptr(), T.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in optional),
+            0.0 if pw is not None else float(prior_weight), float(w2), float(min_inliers),
+            out.data_ptr(), K.stream_of(T))
+    K.check(err, "kt_gn_update")
+    _COUNTED.launches += 1
+    return out
+
+
+gn_update.launches = 0
+# the wrapper counts through this name, which a test that patches the
+# module's `gn_update` (to record its calls) leaves in place
+_COUNTED = gn_update
+
+
 def one_part(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The reduction over a single device: its one tensor (the default
     `reduce` of the solvers, whose single case is a list of one)."""
@@ -242,11 +305,6 @@ def icp_solve_level(cam: CameraIntrinsics, T_init, vmap_curr, nmap_curr,
                 for Tk, v, nm, (d, n, in_img) in zip(Ts, vmap_curr, nmap_curr, assoc)
             ]
             sys_ = sum_systems(parts, reduce)
-            A, b = sys_.A, sys_.b
-            if T_prior is not None:
-                A, b = add_motion_prior(A, b, T, T_prior, prior_weight)
-            xi, ok = solve_gn(A, b)
-            ok = ok & (sys_.count >= min_inliers)
-            T = torch.where(ok, se3.exp_se3(xi) @ T, T)
+            T = gn_update(sys_.A, sys_.b, sys_.count, T, T_prior, prior_weight, min_inliers)
             cnt, res = sys_.count, sys_.residual
     return T, cnt, res

@@ -22,17 +22,15 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from kintinuous_tpu_torch.config import CameraIntrinsics
-from kintinuous_tpu_torch.geometry import se3
 from kintinuous_tpu_torch.ops import preprocess as pp
 from kintinuous_tpu_torch.ops.reduce import (
     GNSystem,
-    add_motion_prior,
+    gn_update,
     icp_associate,
     icp_build_from_assoc,
     icp_step,
     one_part,
     pack_maps,
-    solve_gn,
     sum_systems,
 )
 
@@ -247,19 +245,9 @@ def rgbd_icp_odometry(
             icp_hw = tuple(vp.shape[1:])
 
         def fused_solve(T, rgb, icp):
-            A, b = rgb.A, rgb.b
-            if icp is not None:
-                # intensity-gradient units dwarf metric ICP units by ~1e4:
-                # trace-normalise each system so icp_weight sets the balance
-                s_rgb = 1.0 / (torch.trace(A) + 1e-12)
-                s_icp = 1.0 / (torch.trace(icp.A) + 1e-12)
-                A = s_rgb * A + w2 * s_icp * icp.A
-                b = s_rgb * b + w2 * s_icp * icp.b
-            if T_prior is not None:
-                A, b = add_motion_prior(A, b, T, T_prior, prior_weight)
-            xi, ok = solve_gn(A, b)
-            ok = ok & (rgb.count >= min_inliers)
-            return torch.where(ok, se3.exp_se3(xi) @ T, T), rgb.count, rgb.residual
+            T = gn_update(rgb.A, rgb.b, rgb.count, T, T_prior, prior_weight,
+                          min_inliers, icp=icp, w2=w2)
+            return T, rgb.count, rgb.residual
 
         n_coarse = max(iters - 1, 0)
         phases = ((n_coarse, False), (iters - n_coarse, True))

@@ -50,7 +50,7 @@ from kintinuous_tpu_torch.ops import preprocess as pp
 from kintinuous_tpu_torch.ops.extract import PackedExtract, _compact_flat, _crossing
 from kintinuous_tpu_torch.ops.raycast import RaycastResult, _ray_box, raycast
 from kintinuous_tpu_torch.ops.reduce import (
-    icp_solve_level, icp_step, pack_maps, round_to_int, solve_gn, sum_systems)
+    gn_update, icp_solve_level, icp_step, pack_maps, round_to_int, sum_systems)
 from kintinuous_tpu_torch.ops.rgbd import (
     MIN_GRAD2, build_rgbd_pyramid, pack_prev_texture, rgb_system)
 from kintinuous_tpu_torch.ops.surface_nets import extract_mesh
@@ -509,22 +509,17 @@ def sharded_fused(cfg: KintinuousConfig, mesh: SlabMesh, cam: CameraIntrinsics,
             rgbs = rgb_system(cam_l, T, vcs, ints, texs, prev_hw, mg2,
                               max_depth_delta=cfg.rgbd_max_depth_delta,
                               bilinear=bilinear, reduce=mesh.psum_home)
-            A, b = rgbs.A, rgbs.b
+            icp = None
             if use_icp_term:
                 icp = sum_systems(
                     [icp_step(cam_l, Tk, v, n_, vp, np_, cfg.icp_dist_thresh, sin_t,
                               packed_prev=pk)
                      for Tk, v, n_, pk in zip(mesh.replicate(T), vcs, ncs, packeds)],
                     mesh.psum_home)
-                s_rgb = 1.0 / (torch.trace(A) + 1e-12)
-                s_icp = 1.0 / (torch.trace(icp.A) + 1e-12)
-                A = s_rgb * A + w2 * s_icp * icp.A
-                b = s_rgb * b + w2 * s_icp * icp.b
-            xi, ok = solve_gn(A, b)
-            ok = ok & (rgbs.count >= 30.0)
+            T = gn_update(rgbs.A, rgbs.b, rgbs.count, T, icp=icp, w2=w2)
             # the JAX step psums every field of the system, sigma too: its
             # residual is mesh.n times the whole image's sigma
-            return torch.where(ok, se3.exp_se3(xi) @ T, T), rgbs.count, rgbs.residual * mesh.n
+            return T, rgbs.count, rgbs.residual * mesh.n
 
         n_coarse = max(it - 2, 0)
         for k in range(it):

@@ -47,8 +47,9 @@ def counted_wrappers() -> tuple:
     """The kernel wrappers whose `launches` a capture adjusts."""
     from kintinuous_tpu_torch.ops.cuda_integrate import band_fusion, free_carve
     from kintinuous_tpu_torch.ops.cuda_raycast import build_mirror, mirror_refresh, tile_raycast
+    from kintinuous_tpu_torch.ops.reduce import gn_update
 
-    return (band_fusion, free_carve, mirror_refresh, build_mirror, tile_raycast)
+    return (band_fusion, free_carve, mirror_refresh, build_mirror, tile_raycast, gn_update)
 
 
 class _Capture:

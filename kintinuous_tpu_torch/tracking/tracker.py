@@ -51,7 +51,8 @@ runs eagerly.
 
 Outputs are consumed one frame late, so downloading poses and slices
 overlaps the next device work: each frame's scalars go to one of two
-output slots. The JAX package's batched step (make_batched_step_fast)
+output slots, on a card with a pinned host copy that the host reads
+once its event has passed. The JAX package's batched step (make_batched_step_fast)
 scans a batch in one program with the shift decided on the device and
 the batch's slices in a fixed-size pool; here a batch is the per-frame
 step in a loop (`Tracker.process_batch_device`) and keeps every slice.
@@ -630,6 +631,9 @@ class FrameResult(NamedTuple):
     slices: Tuple  # per axis: PackedExtract or None
     mesh_patches: Tuple  # per axis: MeshResult or None (meshing on), else ()
     mode: str  # one of STEP_MODES
+    # on a card's captured step: (the scalars' pinned host copy, the
+    # event after its copy), read without waiting for later frames' work
+    host: Optional[Tuple] = None
 
 
 def _own(state: TrackerState) -> TrackerState:
@@ -679,6 +683,13 @@ class CapturedStep:
         self.delta_in = torch.eye(4, dtype=torch.float32, device=device)
         self.scratch = torch.zeros(N_SCALARS, dtype=torch.float32, device=device)
         self.slots = torch.zeros((2, N_SCALARS), dtype=torch.float32, device=device)
+        # on a card each slot is also copied to pinned host memory, and an
+        # event marks the copy's end: the host reads frame k's scalars
+        # while the card still runs frame k+1's back half
+        self.host_slots = self.ready = None
+        if device.type == "cuda":
+            self.host_slots = torch.zeros((2, N_SCALARS), dtype=torch.float32, pin_memory=True)
+            self.ready = (torch.cuda.Event(), torch.cuda.Event())
         self.fo: Optional[FrontOut] = None  # made by the first front half
         self._n = 0  # frames stepped
         self.state = state
@@ -774,12 +785,18 @@ class CapturedStep:
                     slices, meshes = self._back_shift(shift_h)
                 else:
                     modes.append(pieces.run("back", self._back, self.buffers))
-            slot = self.slots[self._n % 2]
+            k = self._n % 2
+            slot = self.slots[k]
             slot.copy_(self.scratch)
+            host = None
+            if self.host_slots is not None:
+                self.host_slots[k].copy_(slot, non_blocking=True)
+                self.ready[k].record()
+                host = (self.host_slots[k], self.ready[k])
         self._n += 1
         mode = ("shift" if shift else "warmup" if EAGER in modes
                 else "captured" if CAPTURED in modes else "replayed")
-        return FrameResult(slot, slices, meshes if cfg.incremental_mesh else (), mode)
+        return FrameResult(slot, slices, meshes if cfg.incremental_mesh else (), mode, host)
 
 
 class Tracker:
@@ -930,7 +947,14 @@ class Tracker:
             self.mesh_callback(patch)
 
     def _consume(self, out: FrameResult, timestamp_us: int, frame_idx: int) -> None:
-        scal = out.scalars.cpu().numpy()  # one read for every scalar
+        if out.host is not None:
+            # the pinned copy: waits for this frame's scalars only, not
+            # for the next frame's back half, which the card may still run
+            host, ready = out.host
+            ready.synchronize()
+            scal = host.numpy().copy()
+        else:
+            scal = out.scalars.cpu().numpy()  # one read for every scalar
         pose_g = scal[:16].reshape(4, 4).astype(np.float32)
         icp_c, icp_r, fb = scal[16:19]
         cnt3 = scal[19:22].astype(np.int64)

@@ -19,6 +19,7 @@ from kintinuous_tpu_torch.ops.cuda_integrate import (
 from kintinuous_tpu_torch.ops.cuda_raycast import (
     build_mirror, build_mirror_plain, mirror_refresh, mirror_refresh_plain, ray_setup,
     raycast_params, tile_raycast, tile_raycast_plain)
+from kintinuous_tpu_torch.ops.reduce import GNSystem, gn_update, gn_update_plain
 from kintinuous_tpu_torch.tracking.tracker import Tracker, preprocess_frame
 
 torch.set_num_threads(2)
@@ -785,13 +786,17 @@ def _graph_run(cfg, path, card):
     from test_torch_graph import eager_run, path_frames, tracker_run
 
     frames, deltas = path_frames(path, cam=cfg.camera)
-    wrappers = (band_fusion, free_carve, mirror_refresh, tile_raycast, build_mirror)
+    wrappers = (band_fusion, free_carve, mirror_refresh, tile_raycast, build_mirror,
+                gn_update)
     before = [w.launches for w in wrappers]
     tr = tracker_run(cfg, frames, deltas, device=card)
     torch.cuda.synchronize()
-    moved = dict(zip(("K1", "K2", "K3", "K4", "K5"),
+    moved = dict(zip(("K1", "K2", "K3", "K4", "K5", "GN"),
                      (w.launches - b for w, b in zip(wrappers, before))))
-    return tr, eager_run(cfg, frames, deltas, device=card), moved, len(frames)
+    gn_before = gn_update.launches
+    eager = eager_run(cfg, frames, deltas, device=card)
+    moved["GN_eager"] = gn_update.launches - gn_before
+    return tr, eager, moved, len(frames)
 
 
 @pytest.mark.parametrize("path", ["orbit", "walk"])
@@ -801,7 +806,10 @@ def test_captured_step_equals_the_eager_step_on_the_card(card, config, path):
     replayed) and equals make_step_fast run eagerly on the same frames
     bit for bit; each kernel's count is its launches, replays included:
     K1 and K2 once a frame, K3 and K4 once a frame with a mirror, K5
-    once a frame at an odd block count."""
+    once a frame at an odd block count, and the GN update once a GN step
+    of a tracked frame, as often as in the eager step (17 a frame at
+    config A: 10 steps at the half-resolution level, run in whole groups
+    of icp_reassoc_every = 3, so 12, and 5 at the next)."""
     from test_torch_graph import CONFIGS, assert_same_run, graph_cfg
 
     cfg = graph_cfg(**CONFIGS[config])
@@ -812,6 +820,10 @@ def test_captured_step_equals_the_eager_step_on_the_card(card, config, path):
     assert tr._captured.pieces.captured, "nothing was captured"
     assert_same_run(tr, eager)
     mirror = config not in ("gather", "odd")
+    gn = moved.pop("GN")
+    assert gn == moved.pop("GN_eager") and (gn > 0) == (path == "orbit"), gn
+    if config == "A" and path == "orbit":
+        assert gn == 17 * (n - 1), gn  # the first frame is not tracked
     assert moved == {"K1": n, "K2": n, "K3": n if mirror else 0,
                      "K4": 0 if config == "gather" else n,
                      "K5": n if config == "odd" else 0}, moved
@@ -872,3 +884,146 @@ def test_a_restore_on_the_card_captures_again(card):
     step._state = step.state._replace(pose=step.state.pose.clone())
     with pytest.raises(RuntimeError, match="moved"):
         tr.process_frame(*frames[6], 6 * 33333)
+
+
+# ------------------------------------------------- the GN step's tail
+# The systems come from tests/test_torch_gn.py by its module name, as the
+# captured step's helpers above.
+GN_CHUNK = 256  # systems a graph of the plain version holds
+GN_CHUNKS = 40  # chunks a kind: 10 kinds x 40 x 256 = 102,400 systems
+
+
+class _GNSlots:
+    """GN_CHUNK systems of one kind in fixed card tensors (a graph's
+    inputs), each tensor its own allocation as the solvers' are, filled
+    chunk by chunk from the kind's systems on the card."""
+
+    def __init__(self, sys: dict, card):
+        self.src = {k: v.to(card) for k, v in sys.items() if torch.is_tensor(v)}
+        self.floats = {k: v for k, v in sys.items() if not torch.is_tensor(v)}
+        self.slots = [{k: torch.empty_like(v[0]) for k, v in self.src.items()}
+                      for _ in range(GN_CHUNK)]
+
+    def fill(self, chunk: int) -> None:
+        for k, slot in enumerate(self.slots):
+            for name, t in slot.items():
+                t.copy_(self.src[name][chunk * GN_CHUNK + k])
+
+    def calls(self):
+        """Each slot as gn_update's (args, kwargs)."""
+        for slot in self.slots:
+            kw = {}
+            if "T_prior" in slot or "T_prior" in self.floats:
+                kw.update(T_prior=slot["T_prior"],
+                          prior_weight=slot.get("weight", self.floats.get("weight")))
+            if "icp_A" in slot:
+                kw.update(icp=GNSystem(slot["icp_A"], slot["icp_b"], None, None),
+                          w2=self.floats["w2"])
+            yield (slot["A"], slot["b"], slot["count"], slot["T"]), kw
+
+
+def _captured(fn, card):
+    """fn() (a list of tensors) captured as a CUDA graph after two eager
+    runs on the capture's stream: (graph, the outputs it rewrites)."""
+    stream = torch.cuda.Stream(card)
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream(card).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        outs = fn()
+    return graph, outs
+
+
+def _gn_bits(outs) -> np.ndarray:
+    return torch.stack(outs).cpu().view(torch.int32).numpy()
+
+
+def test_gn_update_kernel_is_its_plain_version_bit_for_bit(card):
+    """kt_gn_update against gn_update_plain on the card, bit for bit, on
+    102,400 random systems over every branch (tests/test_torch_gn.py's
+    kinds). The plain version runs as a graph of 256 calls, replayed
+    chunk by chunk; its first chunk of each kind also eagerly."""
+    from test_torch_gn import KINDS, random_systems
+
+    for k, kind in enumerate(KINDS):
+        slots = _GNSlots(random_systems(GN_CHUNKS * GN_CHUNK, kind, seed=1000 + k), card)
+        graph, plain_outs = _captured(
+            lambda: [gn_update_plain(*a, **kw) for a, kw in slots.calls()], card)
+        for chunk in range(GN_CHUNKS):
+            slots.fill(chunk)
+            graph.replay()
+            plain = _gn_bits(plain_outs)
+            got = _gn_bits([gn_update(*a, **kw) for a, kw in slots.calls()])
+            bad = np.flatnonzero((got != plain).any(axis=(1, 2)))
+            assert bad.size == 0, (kind, chunk, bad[:8].tolist())
+            if chunk == 0:
+                eager = _gn_bits([gn_update_plain(*a, **kw) for a, kw in slots.calls()])
+                assert np.array_equal(eager, plain), kind
+
+
+def test_gn_update_kernel_replayed_in_a_graph_keeps_its_bits(card):
+    """The kernel captured in a CUDA graph (256 launches) and replayed on
+    new systems gives the bits of its eager launches, and a replay adds
+    no launch to the count of the Python wrapper."""
+    from test_torch_gn import KINDS, random_systems
+
+    for k, kind in enumerate(KINDS):
+        slots = _GNSlots(random_systems(4 * GN_CHUNK, kind, seed=2000 + k), card)
+        graph, outs = _captured(
+            lambda: [gn_update(*a, **kw) for a, kw in slots.calls()], card)
+        before = gn_update.launches
+        for chunk in range(4):
+            slots.fill(chunk)
+            graph.replay()
+            replayed = _gn_bits(outs)
+            assert np.array_equal(
+                replayed, _gn_bits([gn_update(*a, **kw) for a, kw in slots.calls()])), kind
+        assert gn_update.launches == before + 4 * GN_CHUNK
+
+
+@pytest.mark.parametrize("scene", ["desk", "lap"])
+def test_gn_update_kernel_on_the_systems_of_a_desk_and_a_lap(card, scene, monkeypatch):
+    """Every GN step of three tracked frames at the benchmark's
+    configurations (512^3, 640x480, -fod; the lap with -ri), eager
+    make_step_fast on the port's desk sweep and living-room lap: the
+    systems each step hands to gn_update are recorded, and on each the
+    kernel equals the plain version bit for bit."""
+    from test_torch_graph import eager_run
+
+    from kintinuous_tpu_torch.config import KintinuousConfig
+    from kintinuous_tpu_torch.io import synth
+    from kintinuous_tpu_torch.ops import reduce as reduce_ops
+    from kintinuous_tpu_torch.ops import rgbd as rgbd_ops
+
+    cfg = KintinuousConfig(fast_mode=True, voxel_shift=16, fast_odometry=True,
+                           extraction_capacity=500_000, icp_plus_rgbd=scene == "lap")
+    if scene == "desk":
+        world, poses = synth.desk_scene(), synth.handheld_trajectory(142)[:4]
+    else:
+        world, poses = synth.living_room_scene(), synth.living_room_trajectory(882)[:4]
+    frames = [synth.render_frame(world, cfg.camera, T) for T in poses]
+    recorded = []
+
+    def record(A, b, count, T, T_prior=None, prior_weight=0.0, min_inliers=30.0,
+               icp=None, w2=0.0):
+        def c(x):
+            return x.clone() if torch.is_tensor(x) else x
+
+        recorded.append(((c(A), c(b), c(count), c(T)), dict(
+            T_prior=c(T_prior), prior_weight=c(prior_weight), min_inliers=min_inliers,
+            icp=None if icp is None else GNSystem(c(icp.A), c(icp.b), None, None), w2=w2)))
+        return gn_update(A, b, count, T, T_prior, prior_weight, min_inliers, icp, w2)
+
+    monkeypatch.setattr(reduce_ops, "gn_update", record)
+    monkeypatch.setattr(rgbd_ops, "gn_update", record)
+    eager_run(cfg, frames, [None] * len(frames), device=card)
+    assert len(recorded) == (17 if scene == "desk" else 21) * (len(frames) - 1)
+    moved = 0
+    for args, kw in recorded:
+        got = gn_update(*args, **kw)
+        assert np.array_equal(_gn_bits([got]), _gn_bits([gn_update_plain(*args, **kw)]))
+        moved += int(not torch.equal(got, args[3]))
+    assert moved > len(recorded) // 2, (moved, len(recorded))
